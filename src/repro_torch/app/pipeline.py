@@ -1,0 +1,214 @@
+"""The hierarchical WSI analysis workflow + variant registration.
+
+Builds the two-level abstract workflow of paper Fig 1/2 over the real
+operation implementations and registers the CPU/accelerator function
+variants with their calibrated PATS speedup estimates.
+
+The accelerator (``gpu``) variants run on one torch device, the card by
+default. Their ``color_deconv``, ``recon_to_nuclei`` and
+``feature_fused`` reach the hand-written kernels through
+:mod:`repro_torch.kernels.ops` (as the JAX package's ``tpu`` variants
+reach its Pallas kernels), and so do the other reconstructions
+(``fill_holes``, ``pre_watershed``, ``canny_edge``).
+
+Host/device boundary
+--------------------
+* A ``gpu`` variant moves the numpy inputs it reads to its device
+  (the chunk payload on the first op); the tile then stays there as
+  ``state["rgb"]``.
+* A ``cpu`` variant downloads tensor inputs with ``.cpu().numpy()``.
+* ``feat_*`` outputs and ``n_objects`` leave the device at the end of
+  the op that makes them, so ``Manager.stage_outputs`` gives host
+  results.
+* A ``gpu`` variant synchronises its device before it returns: the
+  Worker times each call on the host clock (``lane.busy_seconds``, the
+  PATS runtime estimate), which would otherwise see only the enqueue.
+
+Fused-variant substitution rule: ``build_workflow(fused=True)``
+replaces ``color_deconv -> {pixel_stats, gradient_stats}`` by the single
+``feature_fused`` op (one read of the tile instead of three); see the
+JAX package's ``app/pipeline.py`` for when that pays.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..core.calibration import (
+    FUSED_FEATURE_OPS,
+    OP_PROFILES,
+    PARALLEL_FEATURE_OPS,
+    fused_feature_profile,
+)
+from ..core.variants import VariantRegistry, registry as global_registry
+from ..core.workflow import AbstractWorkflow, Operation, Stage
+from ..core.worker import OpContext
+from ..kernels import ops as K
+from . import features as F
+from . import segmentation as S
+from ._device import resolve_device, to_device, to_host
+
+__all__ = ["build_workflow", "register_variants", "run_tile", "OP_IMPLS"]
+
+#: op name -> (cpu impl, accel impl) over the pipeline state dict; the
+#: accel impls take ``device=`` (default: the card).
+OP_IMPLS: dict[str, tuple[Any, Any]] = {
+    "rbc_detection": (S.rbc_detection_cpu, S.rbc_detection_accel),
+    "morph_open": (S.morph_open_cpu, S.morph_open_accel),
+    "recon_to_nuclei": (S.recon_to_nuclei_cpu, S.recon_to_nuclei_accel),
+    "area_threshold": (S.area_threshold_cpu, S.area_threshold_accel),
+    "fill_holes": (S.fill_holes_cpu, S.fill_holes_accel),
+    "pre_watershed": (S.pre_watershed_cpu, S.pre_watershed_accel),
+    "watershed": (S.watershed_cpu, S.watershed_accel),
+    "bwlabel": (S.bwlabel_cpu, S.bwlabel_accel),
+    "color_deconv": (F.color_deconv_cpu, F.color_deconv_accel),
+    "pixel_stats": (F.pixel_stats_cpu, F.pixel_stats_accel),
+    "gradient_stats": (F.gradient_stats_cpu, F.gradient_stats_accel),
+    "haralick": (F.haralick_cpu, F.haralick_accel),
+    "canny_edge": (F.canny_edge_cpu, F.canny_edge_accel),
+    "morphometry": (F.morphometry_cpu, F.morphometry_accel),
+}
+
+_SEG_ORDER = (
+    "rbc_detection",
+    "morph_open",
+    "recon_to_nuclei",
+    "area_threshold",
+    "fill_holes",
+    "pre_watershed",
+    "watershed",
+    "bwlabel",
+)
+
+
+def build_workflow(fused: bool = False) -> AbstractWorkflow:
+    """The two-level workflow; ``fused=True`` applies the fused-variant
+    substitution rule (see module docstring)."""
+    seg_ops = [Operation(n) for n in _SEG_ORDER]
+    if fused:
+        rest = tuple(
+            n for n in PARALLEL_FEATURE_OPS if n not in FUSED_FEATURE_OPS
+        )
+        feat_ops = [Operation("feature_fused")] + [Operation(n) for n in rest]
+        feat_edges = tuple(("feature_fused", n) for n in rest)
+    else:
+        feat_ops = [Operation("color_deconv")] + [
+            Operation(n) for n in PARALLEL_FEATURE_OPS
+        ]
+        feat_edges = tuple(("color_deconv", n) for n in PARALLEL_FEATURE_OPS)
+    return AbstractWorkflow.chain(
+        "wsi-analysis",
+        [
+            Stage.chain("segmentation", seg_ops),
+            Stage("features", tuple(feat_ops), feat_edges),
+        ],
+    )
+
+
+def _to_host(state: Any) -> Any:
+    """Download device-produced state for a host-core consumer (the
+    reference's ``np.asarray`` raises on a CUDA tensor)."""
+    if not isinstance(state, dict):
+        return state
+    return {k: to_host(v) for k, v in state.items()}
+
+
+def _wrap(fn, to_host: bool = False, device: torch.device | None = None):
+    """Adapt a state-dict function to the OpContext calling convention.
+
+    The first op receives the raw tile (chunk payload); downstream ops
+    receive the upstream op's state dict (merged when several inputs
+    arrive). ``to_host=True`` (CPU implementations) downloads tensor
+    inputs; with a ``device`` (accelerator implementations) the call
+    gets ``device=`` and the device is synchronised before returning.
+    """
+    kw = {} if device is None else {"device": device}
+
+    def impl(ctx: OpContext):
+        if not ctx.inputs:
+            arg = ctx.chunk.payload
+        elif len(ctx.inputs) == 1:
+            arg = next(iter(ctx.inputs.values()))
+        else:
+            arg = {}
+            for v in ctx.inputs.values():
+                arg.update(v)
+        out = fn(_to_host(arg) if to_host else arg, **kw)
+        if device is not None and device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return out
+
+    return impl
+
+
+def _feature_fused_cpu(state: dict) -> dict:
+    return F.gradient_stats_cpu(F.pixel_stats_cpu(F.color_deconv_cpu(state)))
+
+
+def _feature_fused_accel(state: dict, device="cuda") -> dict:
+    """One read of the tile through the ``feature_fused`` kernel: stain
+    planes + Sobel |grad| of the luminance, then the per-object
+    reductions of hema and |grad|."""
+    dev = resolve_device(device)
+    rgb = to_device(state["rgb"], dev)
+    objects = to_device(state["objects"], dev)
+    hema, eosin, mag, _ = K.feature_fused(rgb[..., 0], rgb[..., 1], rgb[..., 2])
+    return {
+        **state,
+        "hema": hema,
+        "eosin": eosin,
+        "feat_pixel": to_host(F._obj_stats_t(hema, objects)),
+        "feat_gradient": to_host(F._obj_stats_t(mag, objects)),
+    }
+
+
+def register_variants(
+    reg: VariantRegistry | None = None, accel_kind: str = "gpu",
+    device: Any = "cuda",
+) -> VariantRegistry:
+    """Register the cpu and ``accel_kind`` variants of every op (and of
+    ``feature_fused``); the accelerator variants run on ``device``,
+    which must exist (``device="cuda"`` without a card raises)."""
+    dev = resolve_device(device)
+    reg = reg or global_registry
+    for name, (cpu_fn, accel_fn) in OP_IMPLS.items():
+        p = OP_PROFILES[name]
+        reg.register(name, "cpu", _wrap(cpu_fn, to_host=True), speedup=1.0)
+        reg.register(
+            name,
+            accel_kind,
+            _wrap(accel_fn, device=dev),
+            speedup=p.gpu_speedup,
+            transfer_impact=p.transfer_impact,
+            batchable=p.batchable,
+        )
+    fp = fused_feature_profile()
+    reg.register("feature_fused", "cpu",
+                 _wrap(_feature_fused_cpu, to_host=True), speedup=1.0)
+    reg.register(
+        "feature_fused",
+        accel_kind,
+        _wrap(_feature_fused_accel, device=dev),
+        speedup=fp.gpu_speedup,
+        transfer_impact=fp.transfer_impact,
+        batchable=fp.batchable,
+    )
+    return reg
+
+
+def run_tile(tile: np.ndarray, variant: str = "cpu", device: Any = "cuda") -> dict:
+    """Reference single-threaded execution of the full pipeline: numpy
+    for ``variant="cpu"``, else the accel ops on ``device``."""
+    state: Any = tile
+    names = _SEG_ORDER + ("color_deconv",) + tuple(PARALLEL_FEATURE_OPS)
+    if variant == "cpu":
+        for name in names:
+            state = OP_IMPLS[name][0](state)
+        return state
+    dev = resolve_device(device)
+    for name in names:
+        state = OP_IMPLS[name][1](state, device=dev)
+    return state
