@@ -7,14 +7,20 @@ Before the main path: prints the card's name and its ``nvidia-smi``
 name and power limit, then builds every kernel from ``csrc/*.cu`` (one
 ``nvcc`` per source, all at once) into ``build/torch_kernels/``.
 
-Phase 1, kernels: each hand-written kernel (color_deconv, morph_recon,
-feature_fused) against its plain PyTorch version on the card, at the
-main-path shape 4096x4096 (strided uint8 channel views of a tile) and
-at a ragged 1000x1500; times over many launches with CUDA events (L2
-flushed before each) beside the plain version's time and the bound
-from the bytes the function must move.
+Phase 1, kernels: each hand-written kernel against its plain PyTorch
+version on the card, at the shapes its main path gives it, with CUDA
+events (median, L2 flushed before each call) beside the plain version's
+time, the bound from bytes and operations, and, for the attention
+kernels, the time of ``scaled_dot_product_attention`` on the same
+function. WSI kernels (color_deconv, morph_recon, feature_fused) at
+4096x4096 (strided uint8 channel views of a tile) and a ragged
+1000x1500; sobel_stats at 4096x4096 and 1000x1500; flash_attention at
+B=4, H=32, S=1024, D=64, bf16, causal (the zamba2-1.2B serving prefill),
+plus a ragged S=1000 and a float32 case; decode_attention at B=4,
+Hq=Hkv=32, S=2048, D=64, bf16, lengths [2048, 1025, 700, 1], plus a GQA
+case (Hq=8, Hkv=2); mamba2_chunk_scan at C=8, H=4*64, F=64*64, float32.
 
-Phase 2, the main path: the Manager over one WorkerRuntime with one
+Phase 2, the WSI main path: the Manager over one WorkerRuntime with one
 ``gpu`` lane (PATS, locality) runs 8 tiles of 4096x4096, once with
 ``build_workflow(fused=False)`` and once with ``fused=True``. Checks
 every stage completed on the ``gpu`` lane, the kernels' launch counts
@@ -22,6 +28,23 @@ every stage completed on the ``gpu`` lane, the kernels' launch counts
 
 Phase 3: one 256x256 tile through ``run_tile`` on the card and through
 the numpy path, at the bars of the reference's ``tests/test_app.py``.
+
+Phase 4, the serving path: ``serve_requests`` serves 8 requests (batch
+4, prompt 1024, 32 new tokens, cache 2048) of zamba2-1.2B at full width
+from seeded weights, after a short warm-up call. Checks every request
+got its 32 tokens and that flash_attention, decode_attention and
+mamba2_chunk_scan launched (counts zeroed just before the run); then a
+profiled prefill and decode step say where the time goes.
+
+Phase 5: zamba2-1.2B at full width cut to 8 layers (two segments, one
+shared-attention application), one seed, on the card (kernels) and on
+the CPU (plain versions) with the same weights. In float32: prefill
+logits of a 256-token prompt (batch 2) and 4 teacher-forced decode
+steps within rtol/atol 2e-2, and the same first greedy tokens. In
+bfloat16, as served: every block on the card fed the CPU block's input,
+within 2e-2 (the whole bfloat16 model's error is printed, not checked:
+one-ulp rounding differences between the devices spread through the
+later layers beyond 2e-2).
 
 Any failed check exits non-zero. The last lines are a JSON ``kernels``
 record and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -41,11 +64,22 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS = 67e12           # H100 SXM, float32 outside the tensor cores
+BF16_FLOPS = 989e12         # H100 SXM, dense bf16 on the tensor cores
 REPLACES = {
     "color_deconv": "src/repro/kernels/color_deconv.py:48",
     "morph_recon": "src/repro/kernels/morph_recon.py:82",
     "feature_fused": "src/repro/kernels/feature_fused.py:128",
+    "sobel_stats": "src/repro/kernels/sobel_stats.py:63",
+    "flash_attention": "src/repro/kernels/flash_attention.py:93",
+    "decode_attention": "src/repro/kernels/decode_attention.py:85",
+    "mamba2_chunk_scan": "src/repro/kernels/mamba2_scan.py:56",
 }
+SOURCES = {"mamba2_chunk_scan": "mamba2_scan"}
+PATHS = {"color_deconv": "wsi", "morph_recon": "wsi", "feature_fused": "wsi",
+         "sobel_stats": None, "flash_attention": "serving",
+         "decode_attention": "serving", "mamba2_chunk_scan": "serving"}
+SERVE = dict(arch="zamba2_1p2b", smoke=False, n_requests=8, batch_size=4,
+             prompt_len=1024, max_new=32, max_len=2048)
 N_TILES, TILE, POOL_TILE = 8, 4096, 1024
 
 
@@ -128,9 +162,9 @@ def max_err(got, want, rtol: float, atol: float, what: str) -> float:
     return float(err.max()) if err.numel() else 0.0
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, peak: float = F32_FLOPS) -> tuple[float, str]:
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_f = flops / F32_FLOPS * 1e3
+    t_f = flops / peak * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -230,6 +264,108 @@ def phase_kernels(tile) -> dict:
     )
     for name, res in results.items():
         log(f"  {name} {h}x{w}: " + ", ".join(
+            f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}" for k, v in res.items()))
+    return results
+
+
+def phase_lm_kernels() -> dict:
+    """sobel_stats and the three serving-path kernels against their plain
+    versions, timed at the serving path's shapes."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import mamba2_scan as MS
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sobel_stats as SS
+
+    dev = torch.device("cuda", 0)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev).zero_
+    rng = np.random.default_rng(43)
+    gpu = lambda a, dt=torch.float32: torch.as_tensor(a, device=dev).to(dt)  # noqa: E731
+    normal = lambda *shape: rng.normal(0, 1, shape).astype(np.float32)  # noqa: E731
+    bf16_tol = (1e-2, 1e-2)  # one bfloat16 ulp (2**-8 relative) of output rounding
+    results = {}
+
+    # sobel_stats: the stencil's arithmetic is the plain version's, so the
+    # planes must be equal; the moments are summed in another order.
+    for hw in ((1000, 1500), (4096, 4096)):
+        gray = gpu(rng.uniform(0, 255, hw).astype(np.float32))
+        mag, st = SS.sobel_stats_cuda(gray)
+        want_mag, want_st = ref.sobel_stats_ref(gray)
+        err = max_err(mag, want_mag, 0.0, 0.0, f"sobel_stats {hw}")
+        max_err(st, want_st, 1e-4, 0.0, f"sobel_stats stats {hw}")
+        log(f"  sobel_stats {hw[0]}x{hw[1]}: max abs err {err:.3g}")
+    px = 4096 * 4096
+    bms, by = bound(4 * px + 4 * px + 12, 20 * px)
+    results["sobel_stats"] = dict(
+        max_abs_err=err, ms=time_ms(lambda: SS.sobel_stats_cuda(gray), 50, flush),
+        plain_ms=time_ms(lambda: ref.sobel_stats_ref(gray), 10, flush),
+        bound_ms=bms, bound_by=by, library_ms=None)
+
+    # flash_attention: ragged S and float32 checks, then the prefill shape.
+    for (b, h, hkv, s, dt, tol) in ((2, 8, 2, 1000, torch.bfloat16, bf16_tol),
+                                    (2, 8, 8, 1000, torch.float32, (2e-5, 2e-5)),
+                                    (1, 4, 4, 257, torch.float32, (2e-5, 2e-5))):
+        q, k, v = (gpu(normal(*sh), dt) for sh in ((b, h, s, 64), (b, hkv, s, 64), (b, hkv, s, 64)))
+        e = max_err(FA.flash_attention_cuda(q, k, v, True), ref.flash_attention_ref(q, k, v, True),
+                    *tol, f"flash_attention S={s} {dt} Hkv={hkv}")
+        log(f"  flash_attention B={b} H={h} Hkv={hkv} S={s} {dt}: max abs err {e:.3g}")
+    b, h, s, d = 4, 32, 1024, 64
+    q, k, v = (gpu(normal(b, h, s, d), torch.bfloat16) for _ in range(3))
+    err = max_err(FA.flash_attention_cuda(q, k, v, True), ref.flash_attention_ref(q, k, v, True),
+                  *bf16_tol, "flash_attention prefill shape")
+    lib = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    max_err(lib, ref.flash_attention_ref(q, k, v, True), *bf16_tol, "sdpa causal (yardstick)")
+    bms, by = bound(4 * b * h * s * d * 2, 2.0 * b * h * s * (s + 1) * d, BF16_FLOPS)
+    results["flash_attention"] = dict(
+        max_abs_err=err, ms=time_ms(lambda: FA.flash_attention_cuda(q, k, v, True), 20, flush),
+        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, True), 5, flush),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+                           20, flush))
+
+    # decode_attention: GQA check, then the decode shape (ragged lengths).
+    q = gpu(normal(3, 8, 64))
+    k, v = gpu(normal(3, 2, 777, 64)), gpu(normal(3, 2, 777, 64))
+    lens = torch.tensor([777, 300, 1], dtype=torch.int32, device=dev)
+    e = max_err(DA.decode_attention_cuda(q, k, v, lens), ref.decode_attention_ref(q, k, v, lens),
+                3e-5, 3e-5, "decode_attention GQA")
+    log(f"  decode_attention GQA Hq=8 Hkv=2 S=777 float32: max abs err {e:.3g}")
+    b, h, s, d = 4, 32, 2048, 64
+    lengths = [2048, 1025, 700, 1]
+    q = gpu(normal(b, h, d), torch.bfloat16)
+    k, v = (gpu(normal(b, h, s, d), torch.bfloat16) for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    err = max_err(DA.decode_attention_cuda(q, k, v, lens), ref.decode_attention_ref(q, k, v, lens),
+                  *bf16_tol, "decode_attention decode shape")
+    mask = (torch.arange(s, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q[:, :, None, :], k, v, attn_mask=mask, enable_gqa=True)
+    max_err(sdpa()[:, :, 0], ref.decode_attention_ref(q, k, v, lens), *bf16_tol,
+            "sdpa length mask (yardstick)")
+    valid = sum(lengths)
+    bms, by = bound(2 * b * h * d * 2 + 2 * valid * h * d * 2 + 4 * b, 4.0 * valid * h * d)
+    results["decode_attention"] = dict(
+        max_abs_err=err, ms=time_ms(lambda: DA.decode_attention_cuda(q, k, v, lens), 50, flush),
+        plain_ms=time_ms(lambda: ref.decode_attention_ref(q, k, v, lens), 10, flush),
+        bound_ms=bms, bound_by=by, library_ms=time_ms(sdpa, 50, flush))
+
+    # mamba2_chunk_scan: rounded multiply, then add, as the plain version.
+    c, h, f = 8, 4 * 64, 64 * 64
+    decay = gpu(rng.uniform(0.3, 1.0, (c, h)).astype(np.float32))
+    inc = gpu(normal(c, h, f))
+    got, want = MS.mamba2_chunk_scan_cuda(decay, inc), ref.mamba2_chunk_scan_ref(decay, inc)
+    err = max(max_err(g, w, 0.0, 0.0, "mamba2_chunk_scan") for g, w in zip(got, want))
+    bms, by = bound(4 * (c * h + 2 * c * h * f + h * f), 2.0 * c * h * f)
+    results["mamba2_chunk_scan"] = dict(
+        max_abs_err=err, ms=time_ms(lambda: MS.mamba2_chunk_scan_cuda(decay, inc), 50, flush),
+        plain_ms=time_ms(lambda: ref.mamba2_chunk_scan_ref(decay, inc), 10, flush),
+        bound_ms=bms, bound_by=by, library_ms=None)
+    for name, res in results.items():
+        log(f"  {name}: " + ", ".join(
             f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}" for k, v in res.items()))
     return results
 
@@ -389,6 +525,199 @@ def phase_parity() -> None:
 # --------------------------------------------------------------------------
 
 
+# --------------------------------------------------------------------------
+# phase 4: serving zamba2-1.2B; phase 5: card against CPU
+# --------------------------------------------------------------------------
+
+
+def serving_profile(steps: int = 4) -> dict:
+    """One prefill (batch 4 x 1024) and ``steps`` decode steps of the
+    full model, each part timed on the host clock and then run again
+    under ``torch.profiler``: device busy share against the unprofiled
+    wall time, device kernels per call, device time by kernel and by the
+    PyTorch op that launched it."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    dev = torch.device("cuda", 0)
+    model = build_model(get_config(SERVE["arch"]), device=dev, seed=1)
+    b, n = SERVE["batch_size"], SERVE["prompt_len"]
+    toks = torch.as_tensor(np.random.default_rng(1).integers(0, 32000, (b, n + steps)),
+                           device=dev)
+    state = {}
+
+    def prefill():
+        _, state["caches"] = model.prefill({"tokens": toks[:, :n]}, SERVE["max_len"])
+
+    def decode():
+        for i in range(steps):
+            pos = torch.full((b,), n + i, dtype=torch.int32, device=dev)
+            model.decode_step(state["caches"], toks[:, n + i], pos)
+
+    out = {}
+    for part, fn, calls in (("prefill", prefill, 1), ("decode", decode, steps)):
+        fn()  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        by_name: dict[str, float] = {}
+        n_events = 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                n_events += 1
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e6
+        busy = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        ops = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)[:10]
+        out[part] = dict(wall_s_per_call=wall / calls, device_busy_s_per_call=busy / calls,
+                         idle_share=1.0 - busy / wall if n_events else None,
+                         device_kernels_per_call=n_events / calls,
+                         top=[(name[:60], round(t / calls, 6)) for name, t in top],
+                         top_ops=[(e.key[:40], e.count // calls,
+                                   round(e.self_device_time_total / 1e6 / calls, 6))
+                                  for e in ops])
+    del model, state
+    return out
+
+
+def phase_serving() -> dict:
+    import torch
+
+    from repro_torch.kernels import ops as K
+    from repro_torch.launch.serve import serve_requests
+
+    warm = dict(SERVE, n_requests=SERVE["batch_size"], max_new=2)
+    serve_requests(**warm, device="cuda")  # first cuBLAS / allocator use
+    gc.collect()
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    out = serve_requests(**SERVE, device="cuda")
+    counts = K.launch_counts()
+    out["peak_mem_bytes"] = int(torch.cuda.max_memory_allocated() - base_mem)
+    out["launches"] = counts
+    check(out["requests"] == SERVE["n_requests"], f"{out['requests']} requests answered")
+    check(out["tokens"] == SERVE["n_requests"] * SERVE["max_new"],
+          f"{out['tokens']} tokens, not {SERVE['max_new']} for each request")
+    for name in ("flash_attention", "decode_attention", "mamba2_chunk_scan"):
+        check(counts[name] > 0, f"serving launched no {name} kernel")
+    log(f"  served {out['requests']} requests, {out['tokens']} tokens in {out['wall_s']:.3f} s: "
+        f"{out['tokens_per_s']:.2f} tokens/s, mean time to first token "
+        f"{out['mean_ttft_s']:.4f} s, mean decode step {1e3 * out['mean_decode_step_s']:.3f} ms, "
+        f"peak {out['peak_mem_bytes'] / 2**30:.3f} GiB above the start, steps {out['steps']}")
+    log(f"  launches {counts}; PATS estimates (H100 lane) {out['pats_estimates']}")
+    prof = serving_profile()
+    for part, res in prof.items():
+        log(f"  profiled {part}: " + json.dumps(res))
+    out["profile"] = prof
+    return out
+
+
+def _teacher_forced(model, toks, n, steps, max_len, dev):
+    """Prefill logits of ``toks[:, :n]`` and of ``steps`` decode steps fed
+    ``toks[:, n + i]``, on the CPU."""
+    import torch
+
+    b = toks.shape[0]
+    logits, caches = model.prefill({"tokens": toks[:, :n].to(dev)}, max_len)
+    out = [logits.float().cpu()]
+    for i in range(steps):
+        pos = torch.full((b,), n + i, dtype=torch.int32, device=dev)
+        logits, caches = model.decode_step(caches, toks[:, n + i].to(dev), pos)
+        out.append(logits.float().cpu())
+    return out
+
+
+def phase_card_vs_cpu() -> dict:
+    """8 layers of zamba2-1.2B at full width, one seed, on the card and
+    on the CPU. Whole model in float32: prefill + 4 decode-step logits
+    within 2e-2 and the same first greedy tokens. As served (bfloat16):
+    every block on the card fed the CPU block's input, within 2e-2 (a
+    whole bfloat16 model differs between the two devices by more than
+    that: one-ulp rounding differences spread through later layers; that
+    error is printed)."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as K
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config(SERVE["arch"]), n_layers=8)
+    dev, cpu_dev = torch.device("cuda", 0), torch.device("cpu")
+    b, n, steps, max_len = 2, 256, 4, 512
+    toks = torch.as_tensor(np.random.default_rng(5).integers(0, cfg.vocab_size, (b, n + steps)))
+    bf16_cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(5))
+    K.reset_launch_counts()
+
+    # float32, whole model
+    f32_cpu = copy.deepcopy(bf16_cpu).float()
+    f32_card = copy.deepcopy(f32_cpu).to(dev)
+    t0 = time.perf_counter()
+    want = _teacher_forced(f32_cpu, toks, n, steps, max_len, cpu_dev)
+    t_cpu = time.perf_counter() - t0
+    got = _teacher_forced(f32_card, toks, n, steps, max_len, dev)
+    f32_errs = [max_err(g, w, 2e-2, 2e-2, f"float32 step {i} logits, card vs CPU")
+                for i, (g, w) in enumerate(zip(got, want))]
+    first = want[0].argmax(-1)
+    check(torch.equal(first, got[0].argmax(-1)),
+          f"first greedy tokens differ: CPU {first.tolist()}, card {got[0].argmax(-1).tolist()}")
+    del f32_cpu, f32_card
+
+    # bfloat16 as served, block by block on the CPU block's input
+    bf16_card = copy.deepcopy(bf16_cpu).to(dev)
+    x = T._embed_in(bf16_cpu, cfg, toks[:, :n])
+    block_errs = []
+
+    def compare(name, fn, p_cpu, p_card, x):
+        y = fn(p_cpu, x, cfg)[0]
+        y_card = fn(p_card, x.to(dev), cfg)[0]
+        block_errs.append(max_err(y_card.cpu(), y, 2e-2, 2e-2, f"bfloat16 {name}, card vs CPU"))
+        return y
+
+    segs, off = T.zamba_segments(cfg), 0
+    for si, seg in enumerate(segs):
+        for i in range(off, off + seg):
+            x = compare(f"mamba block {i}", T._mamba_block, bf16_cpu["blocks"][i],
+                        bf16_card["blocks"][i], x)
+        off += seg
+        if si < len(segs) - 1:
+            x = compare(f"shared block {si}", T._dense_block, bf16_cpu["shared"],
+                        bf16_card["shared"], x)
+    head = T._lm_head(bf16_card, cfg, x[:, -1:].to(dev)).cpu()
+    block_errs.append(max_err(head, T._lm_head(bf16_cpu, cfg, x[:, -1:]), 2e-2, 2e-2,
+                              "bfloat16 logits, card vs CPU"))
+    whole = [(g - w).abs().max().item() for g, w in zip(
+        _teacher_forced(bf16_card, toks, n, steps, max_len, dev),
+        _teacher_forced(bf16_cpu, toks, n, steps, max_len, cpu_dev))]
+    counts = K.launch_counts()
+    for name in ("flash_attention", "decode_attention", "mamba2_chunk_scan"):
+        check(counts[name] > 0, f"phase 5 launched no {name} kernel")
+    log(f"  float32, prompt {n}, batch {b}: max abs err (prefill, 4 decode steps) "
+        f"{[float(f'{e:.3g}') for e in f32_errs]}, first greedy tokens {first.tolist()} on both, "
+        f"CPU {t_cpu:.1f} s")
+    log(f"  bfloat16 per block (+ logits): max abs err {[float(f'{e:.3g}') for e in block_errs]}; "
+        f"whole bfloat16 model, not checked: {[float(f'{e:.3g}') for e in whole]}; "
+        f"launches {counts}")
+    del bf16_cpu, bf16_card
+    return dict(float32=f32_errs, bfloat16_blocks=block_errs, bfloat16_whole=whole)
+
+
 def phase_main_path(tiles) -> dict:
     import numpy as np
 
@@ -460,23 +789,40 @@ def main() -> int:
     log(f"tiles: {len(tiles)} x {TILE}x{TILE} mosaics in {time.perf_counter() - t0:.1f} s")
 
     log("phase 1: kernels vs plain versions")
+    from repro_torch.kernels import ops as K
+
+    K.reset_launch_counts()
     kres = phase_kernels(tiles[0])
+    kres.update(phase_lm_kernels())
+    phase1_counts = K.launch_counts()
     log(f"phase 2: main path, {N_TILES} tiles of {TILE}x{TILE}, one gpu lane")
     runs = phase_main_path(tiles)
     log("phase 3: 256x256 tile, card vs numpy")
     phase_parity()
+    del tiles
+    gc.collect()
+    log(f"phase 4: serving {SERVE['arch']} at full width: {SERVE}")
+    served = phase_serving()
+    log("phase 5: zamba2-1.2B, 8 layers at full width, card vs CPU")
+    phase_card_vs_cpu()
 
     records = []
-    for name in ("color_deconv", "morph_recon", "feature_fused"):
+    for name in REPLACES:
         res = kres[name]
-        launches = sum(r["launches"][name] for r in runs.values())
-        check(launches > 0, f"{name}: no launch on the main path")
+        if PATHS[name] == "wsi":
+            launches = sum(r["launches"][name] for r in runs.values())
+        elif PATHS[name] == "serving":
+            launches = served["launches"][name]
+        else:  # on no path of the reference: its phase-1 launches
+            launches = phase1_counts[name]
+        check(launches > 0, f"{name}: no launch")
         records.append(dict(
             name=name, route="cuda",
-            source=f"src/repro_torch/kernels/csrc/{name}.cu",
-            replaces=REPLACES[name], launches=launches,
+            source=f"src/repro_torch/kernels/csrc/{SOURCES.get(name, name)}.cu",
+            replaces=REPLACES[name], path=PATHS[name], launches=launches,
             max_abs_err=res["max_abs_err"], ms=res["ms"], plain_ms=res["plain_ms"],
-            bound_ms=res["bound_ms"], bound_by=res["bound_by"], library_ms=None,
+            bound_ms=res["bound_ms"], bound_by=res["bound_by"],
+            library_ms=res.get("library_ms"),
             **{k: v for k, v in res.items() if k in ("launches_per_call", "bound_all_launches_ms")},
         ))
     log("kernels " + "; ".join(

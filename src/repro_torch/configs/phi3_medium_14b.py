@@ -1,0 +1,15 @@
+"""phi3-medium-14b [dense]: RoPE SwiGLU GQA. [arXiv:2404.14219; unverified]"""
+
+from ..models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="phi3-medium-14b",
+    family="dense",
+    n_layers=40,
+    d_model=5120,
+    n_heads=40,
+    n_kv_heads=10,
+    d_ff=17_920,
+    vocab_size=100_352,
+    rope_theta=10_000.0,
+)

@@ -25,7 +25,10 @@ __all__ = ["KERNELS", "build_all", "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-KERNELS = ("color_deconv", "morph_recon", "feature_fused")
+KERNELS = (
+    "color_deconv", "morph_recon", "feature_fused", "sobel_stats",
+    "flash_attention", "decode_attention", "mamba2_scan",
+)
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -19,6 +19,9 @@ __all__ = [
     "morph_recon_ref",
     "sobel_stats_ref",
     "feature_fused_ref",
+    "flash_attention_ref",
+    "decode_attention_ref",
+    "mamba2_chunk_scan_ref",
     "DECONV_MATRIX",
     "GRAY_WEIGHTS",
 ]
@@ -107,3 +110,63 @@ def feature_fused_ref(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor):
     mag, gstats = sobel_stats_ref(gray_ref(r, g, b))
     hstats = torch.stack([hema.sum(), (hema * hema).sum(), hema.max()])
     return hema, eosin, mag, torch.cat([hstats, gstats])
+
+
+def _kv_heads(x: torch.Tensor, group: int, dim: int) -> torch.Tensor:
+    """KV heads repeated so that q head ``h`` meets kv head ``h // group``."""
+    return x if group == 1 else x.repeat_interleave(group, dim=dim)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """(B, H, S, D) attention with optional causal mask; float32 softmax.
+    k/v may carry fewer heads (B, Hkv, S, D): q head ``h`` reads kv head
+    ``h // (H // Hkv)``. Output in q's dtype."""
+    group = q.shape[1] // k.shape[1]
+    s, d = q.shape[2], q.shape[3]
+    kf = _kv_heads(k, group, 1).float()
+    vf = _kv_heads(v, group, 1).float()
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * (1.0 / np.sqrt(d))
+    if causal:
+        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         lengths: torch.Tensor) -> torch.Tensor:
+    """Single-token attention against a KV cache.
+
+    q: (B, Hq, D); k/v: (B, Hkv, S, D); lengths: (B,) valid cache length
+    (positions ``< lengths`` attend). GQA: query head i reads kv head
+    ``i // (Hq // Hkv)``. Output in q's dtype.
+    """
+    group = q.shape[1] // k.shape[1]
+    s, d = k.shape[2], q.shape[2]
+    kf = _kv_heads(k, group, 1).float()
+    vf = _kv_heads(v, group, 1).float()
+    logits = torch.einsum("bhd,bhsd->bhs", q.float(), kf) * (1.0 / np.sqrt(d))
+    pos = torch.arange(s, device=q.device)
+    valid = pos[None, None, :] < lengths.to(q.device)[:, None, None]
+    logits = logits.masked_fill(~valid, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhs,bhsd->bhd", p, vf).to(q.dtype)
+
+
+def mamba2_chunk_scan_ref(decay: torch.Tensor, inc: torch.Tensor):
+    """Inter-chunk SSD state recurrence.
+
+    decay: (C, H) float32 per-chunk state decay; inc: (C, H, F) per-chunk
+    state increment (F = P*N flattened). Returns the states *entering*
+    each chunk (C, H, F) and the final state (H, F), in inc's dtype:
+
+        s_0 = 0;  s_{c+1} = decay_c * s_c + inc_c   (float32 carry)
+    """
+    c, h, f = inc.shape
+    s = torch.zeros((h, f), dtype=torch.float32, device=inc.device)
+    states = torch.empty_like(inc)
+    for i in range(c):
+        states[i] = s.to(inc.dtype)
+        s = decay[i].float()[:, None] * s + inc[i].float()
+    return states, s.to(inc.dtype)

@@ -26,6 +26,9 @@ COPIED = [
     *(f"telemetry/{m}.py" for m in ("metrics", "tracing", "export", "recorder")),
     "transport/bus.py",
     "app/tiles.py",
+    "models/config.py",
+    *(f"configs/{p.name}" for p in sorted((REF / "configs").glob("*.py"))
+      if p.name != "__init__.py"),
 ]
 
 
@@ -51,6 +54,8 @@ def test_import_with_jax_blocked():
         "import repro_torch, repro_torch.app, repro_torch.core, repro_torch.staging\n"
         "import repro_torch.telemetry, repro_torch.transport\n"
         "import repro_torch.kernels.ops, repro_torch.kernels._build\n"
+        "import repro_torch.models, repro_torch.configs, repro_torch.train\n"
+        "import repro_torch.launch.serve, repro_torch.launch.costs_h100\n"
         "import chip_smoke\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and"
         " (m == 'repro' or m.startswith(('repro.', 'jax')))]\n"
@@ -102,3 +107,39 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
     out = subprocess.run([sys.executable, str(lone)], cwd=tmp_path,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+def test_lm_entry_points_raise_without_a_card():
+    """``serve_requests()`` and ``build_model`` default to the card and
+    raise without one; nothing runs on the CPU instead."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models import build_model
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_requests()
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_requests(arch="zamba2-1.2b", device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_model(get_smoke_config("zamba2-1.2b"), device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_model(get_smoke_config("qwen1.5-4b"))
+
+
+def test_configs_match_reference():
+    """The port's config registry resolves every architecture to the
+    reference's configuration (its ``__init__`` differs from the
+    reference's in one import line, so it is not in ``COPIED``)."""
+    import dataclasses
+
+    from repro.configs import ARCH_IDS, get_config, get_smoke_config
+    from repro_torch import configs as port_configs
+
+    assert port_configs.ARCH_IDS == ARCH_IDS
+    for arch in [*ARCH_IDS, "zamba2-1.2b", "qwen1.5-4b"]:
+        assert dataclasses.asdict(port_configs.get_config(arch)) == dataclasses.asdict(
+            get_config(arch))
+        assert dataclasses.asdict(port_configs.get_smoke_config(arch)) == dataclasses.asdict(
+            get_smoke_config(arch))

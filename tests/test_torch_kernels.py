@@ -138,9 +138,11 @@ def test_ops_on_cpu_tensors_take_plain_version():
         assert torch.equal(got, want)
     marker, mask = (T(a) for a in _recon_inputs(64, 96))
     assert torch.equal(ops.morph_recon(marker, mask), ref.morph_recon_ref(marker, mask))
-    assert ops.launch_counts() == {
+    counts = ops.launch_counts()
+    assert {k: counts[k] for k in ("color_deconv", "morph_recon", "feature_fused")} == {
         "color_deconv": 0, "morph_recon": 0, "feature_fused": 0,
     }
+    assert sum(counts.values()) == 0
 
 
 def test_kernel_wrappers_reject_cpu_tensors():

@@ -67,3 +67,113 @@ def test_cuda_morph_recon(hw):
     got = ops.morph_recon(marker, mask)
     assert ops.launch_counts()["morph_recon"] >= 1
     torch.testing.assert_close(got, ref.morph_recon_ref(marker, mask), rtol=0.0, atol=1e-5)
+
+
+@pytest.mark.parametrize("hw", [(128, 128), (1000, 1500), (4096, 4096)])
+def test_cuda_sobel_stats(hw):
+    dev = _cuda()
+    rng = np.random.default_rng(5)
+    gray = torch.as_tensor(rng.uniform(0, 255, hw).astype(np.float32), device=dev)
+    ops.reset_launch_counts()
+    mag, stats = ops.sobel_stats(gray)
+    want_mag, want_stats = ref.sobel_stats_ref(gray)
+    torch.testing.assert_close(mag, want_mag, rtol=0.0, atol=0.0)  # same arithmetic
+    torch.testing.assert_close(stats, want_stats, rtol=1e-4, atol=0.0)  # sum order
+    assert ops.launch_counts()["sobel_stats"] == 1
+
+
+def _qkv(shape_q, shape_kv, dtype, dev, rng):
+    mk = lambda s: torch.as_tensor(rng.normal(0, 1, s).astype(np.float32),  # noqa: E731
+                                   device=dev).to(dtype)
+    return mk(shape_q), mk(shape_kv), mk(shape_kv)
+
+
+# bfloat16 outputs: one bfloat16 ulp (2**-8 relative) of rounding apart;
+# float32: summation order only.
+_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d", [(4, 32, 32, 1024, 64), (2, 8, 2, 1000, 64),
+                                         (1, 4, 4, 15, 64), (1, 2, 1, 129, 128),
+                                         (2, 4, 4, 77, 32)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_flash_attention(b, h, hkv, s, d, causal, dtype):
+    dev = _cuda()
+    q, k, v = _qkv((b, h, s, d), (b, hkv, s, d), dtype, dev, np.random.default_rng(s))
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, causal)
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, causal), **_TOL[dtype])
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,lengths", [
+    (4, 32, 32, 2048, 64, [2048, 1025, 700, 1]),
+    (3, 8, 2, 512, 64, [512, 171, 1]),
+    (2, 16, 8, 1000, 128, [1000, 999]),
+    (2, 4, 4, 77, 32, [1, 77]),
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_decode_attention(b, hq, hkv, s, d, lengths, dtype):
+    dev = _cuda()
+    q, k, v = _qkv((b, hq, d), (b, hkv, s, d), dtype, dev, np.random.default_rng(s))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    ops.reset_launch_counts()
+    got = ops.decode_attention(q, k, v, lens)
+    assert ops.launch_counts()["decode_attention"] == 1
+    torch.testing.assert_close(got, ref.decode_attention_ref(q, k, v, lens), **_TOL[dtype])
+
+
+def test_cuda_decode_attention_length_zero_gives_zeros():
+    dev = _cuda()
+    q, k, v = _qkv((2, 4, 64), (2, 4, 300, 64), torch.float32, dev, np.random.default_rng(0))
+    lens = torch.tensor([0, 300], dtype=torch.int32, device=dev)
+    got = ops.decode_attention(q, k, v, lens)
+    assert bool((got[0] == 0).all())
+    torch.testing.assert_close(got[1:], ref.decode_attention_ref(q[1:], k[1:], v[1:], lens[1:]),
+                               **_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("c,h,f", [(8, 256, 4096), (3, 5, 7), (1, 16, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_mamba2_chunk_scan(c, h, f, dtype):
+    dev = _cuda()
+    rng = np.random.default_rng(c * h)
+    decay = torch.as_tensor(rng.uniform(0.3, 1.0, (c, h)).astype(np.float32), device=dev)
+    inc = torch.as_tensor(rng.normal(0, 1, (c, h, f)).astype(np.float32), device=dev).to(dtype)
+    ops.reset_launch_counts()
+    states, final = ops.mamba2_chunk_scan(decay, inc)
+    assert ops.launch_counts()["mamba2_chunk_scan"] == 1
+    ws, wf = ref.mamba2_chunk_scan_ref(decay, inc)
+    torch.testing.assert_close(states, ws, rtol=0.0, atol=0.0)  # same rounded mul, add
+    torch.testing.assert_close(final, wf, rtol=0.0, atol=0.0)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "qwen1.5-4b"])
+def test_cuda_smoke_model_matches_cpu_float32(arch):
+    """A smoke model in float32 on the card (kernels) and on the CPU
+    (plain versions), same weights: prefill + 2 decode steps at 1e-3
+    (float32 with TF32 off; the attention and SSD sums run in another
+    order on the card)."""
+    dev = _cuda()
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = build_model(get_smoke_config(arch), device="cpu", seed=0).float()
+    card = build_model(get_smoke_config(arch), device="cpu", seed=0).float().to(dev)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, 512, (2, 24)))
+    ops.reset_launch_counts()
+    lc, cc = cpu.prefill({"tokens": toks[:, :16]}, 32)
+    lg, cg = card.prefill({"tokens": toks[:, :16].to(dev)}, 32)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-3, atol=1e-3)
+    for i in range(2):
+        pos = torch.full((2,), 16 + i, dtype=torch.int32)
+        lc, cc = cpu.decode_step(cc, toks[:, 16 + i], pos)
+        lg, cg = card.decode_step(cg, toks[:, 16 + i].to(dev), pos.to(dev))
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-3, atol=1e-3)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] > 0 and counts["decode_attention"] > 0
+    if arch == "zamba2-1.2b":
+        assert counts["mamba2_chunk_scan"] > 0
