@@ -5,7 +5,11 @@
 
 Before the main path: prints the card's name and its ``nvidia-smi``
 name and power limit, then builds every kernel from ``csrc/*.cu`` (one
-``nvcc`` per source, all at once) into ``build/torch_kernels/``.
+``nvcc`` per source, all at once) into ``build/torch_kernels/``, prints
+each kernel's registers and spills from ``ptxas``, and counts the
+tensor-core instructions (``HMMA``/``HGMMA``, from ``cuobjdump -sass``)
+of the bfloat16 flash_attention kernel for each head dim: it fails if
+that kernel spills or has none.
 
 Phase 1, kernels: each hand-written kernel against its plain PyTorch
 version on the card, at the shapes its main path gives it, with CUDA
@@ -16,7 +20,9 @@ function. WSI kernels (color_deconv, morph_recon, feature_fused) at
 4096x4096 (strided uint8 channel views of a tile) and a ragged
 1000x1500; sobel_stats at 4096x4096 and 1000x1500; flash_attention at
 B=4, H=32, S=1024, D=64, bf16, causal (the zamba2-1.2B serving prefill),
-plus a ragged S=1000 and a float32 case; decode_attention at B=4,
+plus a ragged S=1000 and a float32 case, and timed at B=1, H=32, Hkv=8,
+S=1024, D=128, bf16, causal (the dense models' GQA shape; SDPA with
+``enable_gqa``); decode_attention at B=4,
 Hq=Hkv=32, S=2048, D=64, bf16, lengths [2048, 1025, 700, 1], plus a GQA
 case (Hq=8, Hkv=2); mamba2_chunk_scan at C=8, H=4*64, F=64*64, float32.
 
@@ -54,6 +60,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -126,6 +133,77 @@ def mosaic_tiles(n: int, size: int, seed: int = 11):
             rows.append(np.concatenate(row, axis=1))
         tiles.append(np.ascontiguousarray(np.concatenate(rows, axis=0)))
     return tiles
+
+
+# --------------------------------------------------------------------------
+# build: registers, spills and tensor-core instructions
+# --------------------------------------------------------------------------
+
+
+def ptxas_entries(text: str) -> dict:
+    """``{entry name: {"registers", "spill_stores", "spill_loads"}}`` from
+    an ``nvcc -Xptxas -v`` log."""
+    out: dict[str, dict] = {}
+    name = None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w.$]+)", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def hmma_counts(lib: Path) -> dict:
+    """``{function name: number of tensor-core instructions (HMMA, HGMMA)}``
+    of a built library, from ``cuobjdump -sass`` beside ``nvcc``."""
+    from repro_torch.kernels import _build
+
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    res = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=300)
+    check(res.returncode == 0, f"cuobjdump failed: {res.stderr.strip()[:400]}")
+    out: dict[str, int] = {}
+    name = None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = 0
+        elif name is not None and re.search(r"\bH(G)?MMA\b", line):
+            out[name] += 1
+    return out
+
+
+def flash_build_report(ptxas: dict) -> dict:
+    """Registers, spills and tensor-core instruction count of the
+    bfloat16 flash_attention kernel for each head dim. Fails on a spill
+    or on a kernel with no tensor-core instruction."""
+    from repro_torch.kernels import _build
+
+    entries = ptxas_entries(ptxas["flash_attention"])
+    sass = hmma_counts(_build._target("flash_attention"))
+    report = {}
+    for d in (32, 64, 128):
+        key = f"flash_bf16_kernelILi{d}E"
+        found = [v for n, v in entries.items() if key in n]
+        mma = [c for n, c in sass.items() if key in n]
+        check(len(found) == 1 and len(mma) == 1,
+              f"bf16 flash kernel D={d}: {len(found)} ptxas entries, {len(mma)} SASS functions")
+        report[f"d{d}"] = dict(found[0], hmma=mma[0])
+        check(mma[0] > 0, f"bf16 flash kernel D={d} has no HMMA/HGMMA instruction")
+        check(found[0].get("spill_stores") == 0 and found[0].get("spill_loads") == 0,
+              f"bf16 flash kernel D={d} spills: {found[0]}")
+    report["hmma_in_library"] = sum(sass.values())
+    return report
 
 
 # --------------------------------------------------------------------------
@@ -326,6 +404,22 @@ def phase_lm_kernels() -> dict:
         bound_ms=bms, bound_by=by,
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
                            20, flush))
+    b, h, hkv, s, d = 1, 32, 8, 1024, 128  # the dense models' GQA shape
+    q = gpu(normal(b, h, s, d), torch.bfloat16)
+    k, v = (gpu(normal(b, hkv, s, d), torch.bfloat16) for _ in range(2))
+    want = ref.flash_attention_ref(q, k, v, True)
+    err = max_err(FA.flash_attention_cuda(q, k, v, True), want, *bf16_tol,
+                  "flash_attention D=128 GQA")
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, is_causal=True, enable_gqa=True)
+    max_err(sdpa(), want, *bf16_tol, "sdpa causal GQA (yardstick)")
+    bms, by = bound(2 * (b * h + b * hkv) * s * d * 2, 2.0 * b * h * s * (s + 1) * d, BF16_FLOPS)
+    results["flash_attention"]["gqa_d128"] = dict(
+        shape=[b, h, hkv, s, d], max_abs_err=err,
+        ms=time_ms(lambda: FA.flash_attention_cuda(q, k, v, True), 20, flush),
+        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, True), 5, flush),
+        bound_ms=bms, bound_by=by, library_ms=time_ms(sdpa, 20, flush))
+    del want
 
     # decode_attention: GQA check, then the decode shape (ragged lengths).
     q = gpu(normal(3, 8, 64))
@@ -535,7 +629,8 @@ def serving_profile(steps: int = 4) -> dict:
     full model, each part timed on the host clock and then run again
     under ``torch.profiler``: device busy share against the unprofiled
     wall time, device kernels per call, device time by kernel and by the
-    PyTorch op that launched it."""
+    PyTorch op that launched it, and the device time of each kernel of
+    ``csrc/*.cu``."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -545,6 +640,9 @@ def serving_profile(steps: int = 4) -> dict:
     from repro_torch.models import build_model
 
     dev = torch.device("cuda", 0)
+    kernels = {n for src in (SRC / "repro_torch" / "kernels" / "csrc").glob("*.cu")
+               for n in re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)",
+                                   src.read_text())}
     model = build_model(get_config(SERVE["arch"]), device=dev, seed=1)
     b, n = SERVE["batch_size"], SERVE["prompt_len"]
     toks = torch.as_tensor(np.random.default_rng(1).integers(0, 32000, (b, n + steps)),
@@ -578,11 +676,15 @@ def serving_profile(steps: int = 4) -> dict:
                 by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e6
         busy = sum(by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        port = {k: t for k, t in by_name.items()
+                if any(re.search(rf"\b{n}[<(]", k) for n in kernels)}
         ops = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)[:10]
         out[part] = dict(wall_s_per_call=wall / calls, device_busy_s_per_call=busy / calls,
                          idle_share=1.0 - busy / wall if n_events else None,
                          device_kernels_per_call=n_events / calls,
                          top=[(name[:60], round(t / calls, 6)) for name, t in top],
+                         port_kernels=[(re.search(r"\w+(<[^>]*>)?(?=\()", k).group(0), t / calls)
+                                       for k, t in sorted(port.items(), key=lambda kv: -kv[1])],
                          top_ops=[(e.key[:40], e.count // calls,
                                    round(e.self_device_time_total / 1e6 / calls, 6))
                                   for e in ops])
@@ -783,6 +885,8 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    flash_build = flash_build_report(ptxas)
+    log("  bf16 flash_attention kernel (ptxas, cuobjdump -sass): " + json.dumps(flash_build))
 
     t0 = time.perf_counter()
     tiles = mosaic_tiles(N_TILES, TILE)
@@ -794,6 +898,7 @@ def main() -> int:
     K.reset_launch_counts()
     kres = phase_kernels(tiles[0])
     kres.update(phase_lm_kernels())
+    kres["flash_attention"]["build"] = flash_build
     phase1_counts = K.launch_counts()
     log(f"phase 2: main path, {N_TILES} tiles of {TILE}x{TILE}, one gpu lane")
     runs = phase_main_path(tiles)
@@ -823,7 +928,8 @@ def main() -> int:
             max_abs_err=res["max_abs_err"], ms=res["ms"], plain_ms=res["plain_ms"],
             bound_ms=res["bound_ms"], bound_by=res["bound_by"],
             library_ms=res.get("library_ms"),
-            **{k: v for k, v in res.items() if k in ("launches_per_call", "bound_all_launches_ms")},
+            **{k: v for k, v in res.items()
+               if k in ("launches_per_call", "bound_all_launches_ms", "gqa_d128", "build")},
         ))
     log("kernels " + "; ".join(
         f"{r['name']}: launches={r['launches']} max_abs_err={r['max_abs_err']:.3g} "

@@ -6,29 +6,62 @@
 // out[b, h] = softmax(q[b, h] k[b, h / group]^T * scale [+ causal mask])
 //             v[b, h / group]
 // with q (B, H, S, D), k/v (B, HKV, S, D), group = H / HKV, all
-// contiguous, float32 or bfloat16; the output has q's type.
+// contiguous, float32 or bfloat16; the output has q's type. As in the
+// TPU kernel: float32 running max, denominator and accumulator, fully
+// masked KV blocks skipped, acc / max(l, 1e-30) stored in q's type.
 //
-// Design. One block of 256 threads per (q block of 64 rows, head,
-// batch). The Q tile and each 64-key K/V tile are staged through
-// shared memory as float32 (K transposed, rows padded, so that neither
-// the score loop nor the P.V loop has bank conflicts). Each thread owns
-// 4 query rows x 4 keys of a score tile and 4 rows x D/16 columns of
-// the output accumulator, in registers. The running max, denominator
-// and accumulator are float32 (online softmax, as the TPU kernel's VMEM
-// scratch). Causal: a q block visits only the KV blocks at or before
-// its diagonal, so fully masked blocks cost nothing; the heaviest q
-// blocks are scheduled first. A ragged last block is masked (keys past
-// S never count, rows past S are not stored), so any S is accepted. A
-// q head reads KV head h / group through the index arithmetic: no
-// repeated K/V is materialised.
+// Bound on the card: at B=4, H=32, S=1024, D=64, bf16, causal, q, k, v
+// and out move 67.1 MB (0.0200 ms at 3.35 TB/s) and the two products
+// over the lower triangle need 2 * B*H*S*(S+1)*D = 17.2 GFLOP
+// (0.0174 ms at the dense bf16 tensor-core rate, 989 TFLOP/s): the
+// bytes bound it, just, so the products must run on the tensor cores
+// and the copies must overlap them.
 //
-// Bound on the card: at B=4, H=32, S=1024, D=64, bf16, causal, the two
-// products over the lower triangle need 2 * B*H*S*(S+1)*D = 17.2 GFLOP
-// (17.4 us at the dense bf16 tensor-core rate, 989 TFLOP/s) and q, k,
-// v, out move 67.1 MB (20.0 us at 3.35 TB/s): the bytes bound it, just.
-// This first version multiplies in float32 on the CUDA cores (no tensor
-// cores, no TMA), so it is held to the float32 rate (67 TFLOP/s,
-// 257 us) at best; tensor cores are later work.
+// bfloat16 (`flash_bf16_kernel`, the serving path): FlashAttention-2's
+// structure on the `mma.sync` tensor-core instructions.
+// - One block of 4 warps per (q block of 64 rows, head, batch); each
+//   warp owns 16 query rows. K/V come in tiles of 64 keys.
+// - Q, K and V tiles go from device memory to shared memory by
+//   `cp.async` in 16-byte chunks; K/V sit in a two-stage ring, so tile
+//   j + 1 is in flight while tile j is multiplied (one barrier per
+//   tile). Rows past S are zero-filled by the copy's source size:
+//   nothing is read out of bounds. Shared memory: 5 tiles of 64 x D bf16
+//   (40 KB at D = 64, 80 KB at D = 128).
+// - Each row of D bf16 is stored with its 16-byte chunk index XORed by
+//   the row (mod 8), so every `ldmatrix` reads 8 rows from 8 distinct
+//   bank groups with no padding. A lane's ldmatrix address is one XOR
+//   of a precomputed offset plus immediates (`ldsm_offset`).
+// - S = Q K^T by `mma.sync.m16n8k16` (bf16 in, float32 accumulate): Q's
+//   A fragments are loaded once by `ldmatrix` and stay in registers for
+//   the whole KV loop; K's B fragments come from `ldmatrix` of the
+//   row-major [key][d] tile.
+// - Online softmax in registers: a thread holds two rows of its warp's
+//   16 x 64 score tile; the row max reduces over the 4 lanes of a quad
+//   by shuffles. Scale and log2(e) are folded into one multiply-add,
+//   and the exponentials are `ex2.approx` (one MUFU.EX2 each). Masks are
+//   applied only to the diagonal KV block (causal) and the ragged last
+//   block.
+// - P V with no round trip through shared memory: the float32 score
+//   accumulators of two neighbouring n8 tiles are rounded to bf16 and
+//   are the A fragment of an m16k16 product (the C layout of m16n8 is
+//   the A layout of m16k16); V's B fragments come from
+//   `ldmatrix.trans`. P is rounded to bf16 before this product (the TPU
+//   kernel keeps it in float32; scaled_dot_product_attention rounds it
+//   the same way). The row sums l are the same rounded P times a column
+//   of ones, one more product per 16 keys on the tensor cores in place
+//   of 32 float adds and the quad reduction.
+// - Occupancy: D <= 64 is held to 128 registers (4 blocks, 16 warps per
+//   SM, no spills); D = 128 takes ~200 (2 blocks).
+// - Causal: a q block visits only the KV blocks at or before its
+//   diagonal, and the grid runs the heaviest q blocks of every head
+//   first. GQA by index arithmetic (h / group): no repeated K/V.
+//
+// float32 (`flash_fwd_kernel`, for float32 callers): the CUDA-core
+// kernel that served both types before the bf16 path moved to the tensor
+// cores, unchanged. One block of 256 threads per q block of 64 rows; Q
+// and 64-key K/V tiles staged in shared memory as float32 (K transposed,
+// rows padded), 4x4 scores and 4 x D/16 outputs per thread, scalar FMAs.
+// It is held to the float32 rate (67 TFLOP/s).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,12 +75,8 @@ constexpr int THREADS = 256;
 constexpr float NEG = -1.0e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 template <int D>
 struct Smem {
@@ -216,10 +245,325 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 on the tensor cores
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Rows of D bf16 in shared memory are swizzled: 16-byte chunk `ch` of
+// row `row` is stored at chunk ch ^ key(row), so the 8 rows that one
+// ldmatrix phase reads fall in 8 distinct 16-byte bank groups.
+template <int D>
+__device__ __forceinline__ int swz_key(int row) {
+  return D >= 64 ? (row & 7) : ((row >> 1) & 3);  // D = 32: two rows per 128 bytes
+}
+template <int D>
+__device__ __forceinline__ int swz(int row, int ch) {  // element offset
+  return row * D + ((ch ^ swz_key<D>(row)) << 3);
+}
+// Byte offset of the row that this lane addresses in an ldmatrix.x4 of
+// rows [0, 16) (lane row r < 16, chunk c of chunk pair 0). Since
+// (2j + c) ^ key = 2j ^ (c ^ key), chunk pair j of rows [R, R + 16) is at
+// (offset ^ (j << 5)) + R * 2D: one XOR per chunk pair, then immediates.
+template <int D>
+__device__ __forceinline__ unsigned ldsm_offset(int r, int c) {
+  return r * D * 2 + ((c ^ swz_key<D>(r)) << 4);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// d (16x8, float32) += a (16x16, bf16, row) * b (16x8, bf16, col).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// 2^x, one MUFU.EX2 (relative error about 2^-22; denormals flush to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ROWS rows of D bf16 from row `row` of `src` into a swizzled tile,
+// by cp.async in 16-byte chunks; rows past S are zero-filled (source
+// size 0, nothing read). A thread copies one chunk column every STEP
+// rows; STEP is a multiple of 8, so all its rows share one swizzle.
+template <int ROWS, int D, int THREADS>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row, int S, int tid) {
+  constexpr int CH = D / 8, STEP = THREADS / CH;
+  static_assert(STEP % 8 == 0 && ROWS % STEP == 0, "whole passes of a fixed swizzle");
+  const int r = tid / CH, ch = tid % CH;
+  bf16* d = dst + swz<D>(r, ch);
+  const bf16* g = src + static_cast<long long>(row + r) * D + ch * 8;
+  if (row + ROWS <= S) {
+#pragma unroll
+    for (int i = 0; i < ROWS / STEP; ++i) cp_async16(d + i * STEP * D, g + i * STEP * D, 16);
+  } else {
+#pragma unroll
+    for (int i = 0; i < ROWS / STEP; ++i) {
+      const bool ok = row + r + i * STEP < S;
+      cp_async16(d + i * STEP * D, ok ? g + i * STEP * D : src, ok ? 16 : 0);
+    }
+  }
+}
+
+constexpr int BQ = 64;  // query rows per block, 16 per warp
+constexpr int BK = 64;  // keys per K/V tile
+constexpr int THREADS = 128;
+
+// Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): lane = 4 g + t.
+// A (16x16): a0 (row g, k 2t..2t+1), a1 (row g+8, same k), a2 (row g,
+// k 2t+8..), a3 (row g+8, k 2t+8..). B (16x8): b0 (k 2t..2t+1, col g),
+// b1 (k 2t+8.., col g). C (16x8): c0, c1 (row g, cols 2t, 2t+1), c2, c3
+// (row g+8, same cols).
+
+// s (16 x BK, float32) = the warp's 16 rows of Q times K^T. kt: the K
+// tile's shared address; klane: this lane's ldsm_offset in it.
+template <int D>
+__device__ __forceinline__ void qk(float (&s)[BK / 8][4], const unsigned (&qf)[D / 16][4],
+                                   unsigned kt, unsigned klane) {
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const unsigned a = kt + (klane ^ (kk << 5));  // d chunks 2kk, 2kk + 1
+#pragma unroll
+    for (int p = 0; p < BK / 16; ++p) {
+      unsigned kf[4];  // b0, b1 of key tile 2p, then of 2p + 1
+      ldsm_x4(kf, a + p * 16 * D * 2);
+      mma_bf16(s[2 * p], qf[kk], kf[0], kf[1]);
+      mma_bf16(s[2 * p + 1], qf[kk], kf[2], kf[3]);
+    }
+  }
+}
+
+// Online softmax of the scores s of keys k0.. (masked where needed);
+// rescale acc and add P V, P rounded to bf16. vt: the V tile's shared
+// address; vlane: this lane's ldsm_offset in it. The row sums of P are
+// one more product on the tensor cores, P times a column of ones, into
+// l (the C fragment of an m16n8 product: l[0], l[1] row g, l[2], l[3]
+// row g + 8), so l sums the same rounded P that multiplies V.
+template <int D>
+__device__ __forceinline__ void softmax_pv(float (&s)[BK / 8][4], float (&acc)[D / 8][4],
+                                           float (&m)[2], float (&l)[4], unsigned vt,
+                                           unsigned vlane, int k0, int row0, int S, int causal,
+                                           float scale_log2, int lane) {
+  constexpr int NT = BK / 8, DT = D / 8;
+  const int g = lane >> 2, t = lane & 3;
+  if (k0 + BK > S || (causal && k0 + BK - 1 > row0)) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + j * 8 + 2 * t + (e & 1);
+        const int row = row0 + g + (e >> 1) * 8;
+        if (col >= S || (causal && col > row)) s[j][e] = NEG;
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {  // rows g and g + 8
+    float mx = fmaxf(s[0][2 * i], s[0][2 * i + 1]);
+#pragma unroll
+    for (int j = 1; j < NT; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[i], mx * scale_log2);
+    const float alpha = ex2(m[i] - m_new);
+    m[i] = m_new;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      s[j][2 * i] = ex2(fmaf(s[j][2 * i], scale_log2, -m_new));
+      s[j][2 * i + 1] = ex2(fmaf(s[j][2 * i + 1], scale_log2, -m_new));
+    }
+    l[2 * i] *= alpha;
+    l[2 * i + 1] *= alpha;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      acc[j][2 * i] *= alpha;
+      acc[j][2 * i + 1] *= alpha;
+    }
+  }
+  unsigned pa[BK / 16][4];  // P as the A fragments of BK / 16 k16 steps
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+    pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+    pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    mma_bf16(l, pa[kk], 0x3f803f80u, 0x3f803f80u);  // bf16 ones
+  }
+#pragma unroll
+  for (int p = 0; p < DT / 2; ++p) {
+    const unsigned a = vt + (vlane ^ (p << 5));  // d chunks 2p, 2p + 1
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      unsigned vf[4];  // b0, b1 of d tile 2p, then of 2p + 1
+      ldsm_x4_trans(vf, a + kk * 16 * D * 2);
+      mma_bf16(acc[2 * p], pa[kk], vf[0], vf[1]);
+      mma_bf16(acc[2 * p + 1], pa[kk], vf[2], vf[3]);
+    }
+  }
+}
+
+template <int D>
+constexpr int smem_bytes() {
+  return (BQ + 4 * BK) * D * 2;  // Q, and two stages of K and V
+}
+
+template <int D, int MINB>
+__global__ void __launch_bounds__(THREADS, MINB)
+flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, bf16* __restrict__ o, int H, int HKV, int S,
+                  float scale_log2, int causal) {
+  constexpr int KD = D / 16, NT = BK / 8, DT = D / 8, TILE = BK * D;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + BQ * D;    // two stages
+  bf16* Vs = Ks + 2 * TILE;  // two stages
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qb = gridDim.z - 1 - blockIdx.z;  // heaviest (causal) first
+  const int hk = h / (H / HKV);
+  const int q0 = qb * BQ;
+  const long long qoff = (static_cast<long long>(b) * H + h) * S * D;
+  const long long koff = (static_cast<long long>(b) * HKV + hk) * S * D;
+  const bf16* qp = q + qoff;
+  const bf16* kp = k + koff;
+  const bf16* vp = v + koff;
+  bf16* op = o + qoff;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + warp * 16;  // the warp's first query row
+  const int kend = causal ? min(S, q0 + BQ) : S;
+  const int nkb = (kend + BK - 1) / BK;
+
+  const unsigned ks = smem_addr(Ks), vs = smem_addr(Vs);
+  // This lane's ldmatrix offsets in a K tile and (transposed) in a V tile.
+  const unsigned klane = ldsm_offset<D>((lane & 7) + ((lane >> 4) << 3), (lane >> 3) & 1);
+  const unsigned vlane = ldsm_offset<D>((lane & 7) + ((lane >> 3) & 1) * 8, lane >> 4);
+
+  unsigned qf[KD][4];
+  float acc[DT][4];
+  float m[2] = {NEG, NEG};            // rows g and g + 8, in log2 units
+  float l[4] = {0.f, 0.f, 0.f, 0.f};  // their sums (see softmax_pv)
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  auto load_q = [&]() {
+    const unsigned qlane = warp * 16 * D * 2 + ldsm_offset<D>(lane & 15, lane >> 4);
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) ldsm_x4(qf[kk], smem_addr(Qs) + (qlane ^ (kk << 5)));
+  };
+
+  load_rows<BQ, D, THREADS>(Qs, qp, q0, S, tid);
+  load_rows<BK, D, THREADS>(Ks, kp, 0, S, tid);
+  load_rows<BK, D, THREADS>(Vs, vp, 0, S, tid);
+  cp_async_commit();
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int st = kb & 1;
+    cp_async_wait<0>();  // block kb has landed
+    __syncthreads();     // ... for every thread, and block kb - 1 is consumed
+    if (kb == 0) load_q();
+    if (kb + 1 < nkb) {  // block kb + 1 into the stage of block kb - 1
+      load_rows<BK, D, THREADS>(Ks + (st ^ 1) * TILE, kp, (kb + 1) * BK, S, tid);
+      load_rows<BK, D, THREADS>(Vs + (st ^ 1) * TILE, vp, (kb + 1) * BK, S, tid);
+      cp_async_commit();
+    }
+    float s[NT][4];
+    qk<D>(s, qf, ks + st * TILE * 2, klane);
+    softmax_pv<D>(s, acc, m, l, vs + st * TILE * 2, vlane, kb * BK, row0, S, causal,
+                  scale_log2, lane);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float inv = 1.f / fmaxf(l[2 * i], 1e-30f);
+    const int row = row0 + g + i * 8;
+    if (row >= S) continue;
+    bf16* orow = op + static_cast<long long>(row) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+      *reinterpret_cast<unsigned*>(orow + j * 8) =
+          pack_bf16(acc[j][2 * i] * inv, acc[j][2 * i + 1] * inv);
+  }
+}
+
+template <int D, int MINB>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int HKV,
+           int S, float scale, int causal, void* stream) {
+  constexpr int bytes = smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(flash_bf16_kernel<D, MINB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(H, B, (S + BQ - 1) / BQ);
+  flash_bf16_kernel<D, MINB><<<grid, THREADS, bytes, (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, H, HKV, S, scale * LOG2E,
+      causal);
+  return (int)cudaGetLastError();
+}
+
+// Blocks per SM: D <= 64 is held to 128 registers, so 4 blocks (16
+// warps) share an SM; D = 128 needs ~200 registers (2 blocks).
+int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H, int HKV,
+             int S, int D, float scale, int causal, void* stream) {
+  switch (D) {
+    case 32: return launch<32, 4>(q, k, v, o, B, H, HKV, S, scale, causal, stream);
+    case 64: return launch<64, 4>(q, k, v, o, B, H, HKV, S, scale, causal, stream);
+    case 128: return launch<128, 1>(q, k, v, o, B, H, HKV, S, scale, causal, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // q (B, H, S, D), k/v (B, HKV, S, D), o (B, H, S, D), contiguous; D in
-// {32, 64, 128}; H a multiple of HKV. Returns the CUDA error, or 0.
+// {32, 64, 128}; H a multiple of HKV; bf16 pointers 16-byte aligned.
+// Returns the CUDA error, or 0.
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
                                    void* o, int B, int H, int HKV, int S, int D,
                                    float scale, int causal, void* stream) {
@@ -229,5 +573,5 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
                                     void* o, int B, int H, int HKV, int S, int D,
                                     float scale, int causal, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, o, B, H, HKV, S, D, scale, causal, stream);
+  return tc::dispatch(q, k, v, o, B, H, HKV, S, D, scale, causal, stream);
 }

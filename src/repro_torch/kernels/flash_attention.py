@@ -32,7 +32,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True) -> torch.Tensor:
     """q (B, H, S, D), k/v (B, Hkv, S, D) on the card, contiguous,
     float32 or bfloat16 (all one type), H a multiple of Hkv, D in
-    :data:`HEAD_DIMS`, any S -> (B, H, S, D) in q's type."""
+    :data:`HEAD_DIMS`, any S -> (B, H, S, D) in q's type. bfloat16
+    tensors must start 16-byte aligned (the kernel copies 16-byte
+    chunks with ``cp.async``)."""
     global launches
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"expected q (B,H,S,D) and k, v (B,Hkv,S,D); got "
@@ -50,6 +52,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError("q, k, v must be contiguous")
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("bfloat16 q, k, v must start 16-byte aligned")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out

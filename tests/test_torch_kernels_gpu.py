@@ -95,7 +95,9 @@ _TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol=1e-
 
 @pytest.mark.parametrize("b,h,hkv,s,d", [(4, 32, 32, 1024, 64), (2, 8, 2, 1000, 64),
                                          (1, 4, 4, 15, 64), (1, 2, 1, 129, 128),
-                                         (2, 4, 4, 77, 32)])
+                                         (2, 4, 4, 77, 32), (1, 32, 8, 1024, 128),
+                                         (1, 4, 2, 1, 64), (1, 4, 2, 16, 64),
+                                         (1, 4, 2, 63, 64), (1, 4, 2, 65, 64)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_cuda_flash_attention(b, h, hkv, s, d, causal, dtype):
@@ -106,6 +108,36 @@ def test_cuda_flash_attention(b, h, hkv, s, d, causal, dtype):
     assert ops.launch_counts()["flash_attention"] == 1
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, causal), **_TOL[dtype])
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention_bf16_peaked_scores(d, causal):
+    """q scaled by 8: scores of standard deviation 8, so the running max
+    moves by many units between KV blocks and most of P rounds to 0."""
+    dev = _cuda()
+    q, k, v = _qkv((2, 4, 1000, d), (2, 2, 1000, d), torch.float32, dev,
+                   np.random.default_rng(d))
+    q, k, v = (q * 8).bfloat16(), k.bfloat16(), v.bfloat16()
+    got = ops.flash_attention(q, k, v, causal)
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, causal),
+                               **_TOL[torch.bfloat16])
+
+
+def test_cuda_flash_attention_bf16_misaligned_raises():
+    """The bfloat16 kernel copies 16-byte chunks: a tensor that starts
+    one element into its storage is refused, not read."""
+    dev = _cuda()
+    shape = (1, 2, 64, 64)
+    q = torch.zeros(int(np.prod(shape)) + 1, dtype=torch.bfloat16, device=dev)[1:].view(shape)
+    k = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="aligned"):
+        ops.flash_attention(q, k, k, True)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.flash_attention(k, q, k, True)
+    assert ops.launch_counts()["flash_attention"] == 0
 
 
 @pytest.mark.parametrize("b,hq,hkv,s,d,lengths", [
