@@ -18,7 +18,11 @@ time, the bound from bytes and operations, and, for the attention
 kernels, the time of ``scaled_dot_product_attention`` on the same
 function. WSI kernels (color_deconv, morph_recon, feature_fused) at
 4096x4096 (strided uint8 channel views of a tile) and a ragged
-1000x1500; sobel_stats at 4096x4096 and 1000x1500; flash_attention at
+1000x1500; morph_recon on each of the four (marker, mask) pairs that
+one tile's ops hand it (captured from ``ops.morph_recon``), each
+bit-identical to the plain version in one launch, with the rounds, tile
+visits and in-tile sweeps the kernel counts; sobel_stats at 4096x4096
+and 1000x1500; flash_attention at
 B=4, H=32, S=1024, D=64, bf16, causal (the zamba2-1.2B serving prefill),
 plus a ragged S=1000 and a float32 case, and timed at B=1, H=32, Hkv=8,
 S=1024, D=128, bf16, causal (the dense models' GQA shape; SDPA with
@@ -30,7 +34,9 @@ Phase 2, the WSI main path: the Manager over one WorkerRuntime with one
 ``gpu`` lane (PATS, locality) runs 8 tiles of 4096x4096, once with
 ``build_workflow(fused=False)`` and once with ``fused=True``. Checks
 every stage completed on the ``gpu`` lane, the kernels' launch counts
-(zeroed just before each run) rose, and both runs agree per tile.
+(zeroed just before each run) rose, morph_recon launched once per
+reconstruction (the scheduler's count of the four ops that run one),
+and both runs agree per tile.
 
 Phase 3: one 256x256 tile through ``run_tile`` on the card and through
 the numpy path, at the bars of the reference's ``tests/test_app.py``.
@@ -88,6 +94,8 @@ PATHS = {"color_deconv": "wsi", "morph_recon": "wsi", "feature_fused": "wsi",
 SERVE = dict(arch="zamba2_1p2b", smoke=False, n_requests=8, batch_size=4,
              prompt_len=1024, max_new=32, max_len=2048)
 N_TILES, TILE, POOL_TILE = 8, 4096, 1024
+#: The ops that run one ``ops.morph_recon`` reconstruction each, per tile.
+RECON_OPS = ("recon_to_nuclei", "fill_holes", "pre_watershed", "canny_edge")
 
 
 class CheckFailed(Exception):
@@ -233,8 +241,11 @@ def time_ms(fn, n: int, flush) -> float:
 
 
 def max_err(got, want, rtol: float, atol: float, what: str) -> float:
-    err = (got.float() - want.float()).abs()
-    bad = err > atol + rtol * want.float().abs()
+    g, w = got.float(), want.float()
+    # Equal infinities agree; a NaN fails unless the plain version has one there too.
+    same = (g == w) | (g.isnan() & w.isnan())
+    err = (g - w).abs().masked_fill(same, 0.0)
+    bad = ~same & ~(err <= atol + rtol * w.abs())
     check(not bool(bad.any()), f"{what}: {int(bad.sum())} elements beyond "
           f"rtol={rtol} atol={atol} (max abs err {float(err.max())})")
     return float(err.max()) if err.numel() else 0.0
@@ -246,11 +257,66 @@ def bound(nbytes: float, flops: float, peak: float = F32_FLOPS) -> tuple[float, 
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
+def recon_inputs(tile) -> dict:
+    """``{op: (marker, mask)}``: the pairs that one tile's ops hand
+    ``ops.morph_recon`` (``RECON_OPS``), captured on the card."""
+    from repro_torch.kernels import ops as K
+
+    caps = []
+    kernel = K.morph_recon
+
+    def capture(marker, mask):
+        caps.append((marker.float().contiguous().clone(), mask.float().contiguous().clone()))
+        return kernel(marker, mask)
+
+    K.morph_recon = capture
+    try:
+        per_op_times(tile)
+    finally:
+        K.morph_recon = kernel
+    check(len(caps) == len(RECON_OPS), f"{len(caps)} morph_recon calls on one tile")
+    return dict(zip(RECON_OPS, caps))
+
+
+def recon_exact(got, want, what: str) -> float:
+    """Fails unless ``got`` equals ``want`` element for element (a NaN
+    never does); returns the max abs error, measured."""
+    import torch
+
+    check(torch.equal(got, want), f"{what}: not bit-identical to the plain version")
+    return float((got - want).abs().max()) if got.numel() else 0.0
+
+
+def recon_timings(tile, flush) -> tuple[dict, float]:
+    """``morph_recon_cuda`` on each pair of :func:`recon_inputs`: checked
+    bit-identical to the plain version, then its launches per call, its
+    max abs error, its median time and the rounds, tile visits and
+    in-tile sweeps the kernel counted; and the plain version's time on
+    the ``recon_to_nuclei`` pair."""
+    from repro_torch.kernels import morph_recon as MR
+    from repro_torch.kernels import ref
+
+    per_input, plain_ms = {}, None
+    for name, (marker, mask) in recon_inputs(tile).items():
+        n0 = MR.launches
+        got = MR.morph_recon_cuda(marker, mask)
+        launches = MR.launches - n0
+        err = recon_exact(got, ref.morph_recon_ref(marker, mask), f"morph_recon {name} input")
+        ms = time_ms(lambda m=marker, k=mask: MR.morph_recon_cuda(m, k), 20, flush)
+        rounds, visits, sweeps = MR.last_stats.tolist()
+        per_input[name] = dict(ms=ms, launches=launches, max_abs_err=err, rounds=rounds,
+                               tile_visits=visits, sweeps=sweeps)
+        log(f"  morph_recon {name} input: {ms:.4f} ms, {launches} launch(es), max abs err "
+            f"{err:.3g}, {rounds} rounds, {visits} tile visits, {sweeps} in-tile sweeps")
+        if name == "recon_to_nuclei":
+            plain_ms = time_ms(lambda m=marker, k=mask: ref.morph_recon_ref(m, k), 3, flush)
+    return per_input, plain_ms
+
+
 def phase_kernels(tile) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.app import segmentation as S
     from repro_torch.kernels import color_deconv as CD
     from repro_torch.kernels import feature_fused as FF
     from repro_torch.kernels import morph_recon as MR
@@ -291,9 +357,11 @@ def phase_kernels(tile) -> dict:
         (rng.uniform(0, 1, (1000, 1500)) > 0.6).astype(np.float32), device=dev
     )
     n0 = MR.launches
-    e = max_err(MR.morph_recon_cuda(marker, mask), ref.morph_recon_ref(marker, mask),
-                0.0, 1e-5, "morph_recon 1000x1500")
-    log(f"  morph_recon 1000x1500: max abs err {e:.3g}, {MR.launches - n0} launches")
+    e = recon_exact(MR.morph_recon_cuda(marker, mask), ref.morph_recon_ref(marker, mask),
+                    "morph_recon 1000x1500")
+    rounds, visits, sweeps = MR.last_stats.tolist()
+    log(f"  morph_recon 1000x1500: max abs err {e:.3g}, {MR.launches - n0} launch, "
+        f"{rounds} rounds, {visits} tile visits, {sweeps} sweeps")
 
     # Main-path shape: strided uint8 channel views of a resident tile.
     rgb = torch.as_tensor(tile, device=dev)
@@ -322,23 +390,17 @@ def phase_kernels(tile) -> dict:
         bound_ms=bms, bound_by=by,
     )
 
-    # morph_recon on the recon_to_nuclei input of the tile.
-    inv = 255.0 - S._gray_t(rgb)
-    marker = inv
-    for _ in range(8):
-        marker = S._erode_t(marker)
-    n0 = MR.launches
-    got = MR.morph_recon_cuda(marker, inv)
-    per_call = MR.launches - n0
-    err = max_err(got, ref.morph_recon_ref(marker, inv), 0.0, 1e-5, f"morph_recon {h}x{w}")
+    # morph_recon on the (marker, mask) pairs the tile's four ops hand it:
+    # bit-identical to the plain version, one launch each, rounds and
+    # tile visits from the kernel's own counts.
+    per_input, plain_ms = recon_timings(tile, flush)
+    for name, res in per_input.items():
+        check(res["launches"] == 1, f"morph_recon {name}: {res['launches']} launches")
     bms, by = bound(12 * px, 10 * px)
     results["morph_recon"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: MR.morph_recon_cuda(marker, inv), 10, flush),
-        plain_ms=time_ms(lambda: ref.morph_recon_ref(marker, inv), 3, flush),
-        bound_ms=bms, bound_by=by,
-        launches_per_call=per_call,
-        bound_all_launches_ms=bound(12 * px, 0)[0] * per_call,
+        max_abs_err=max(res["max_abs_err"] for res in per_input.values()),
+        ms=per_input["recon_to_nuclei"]["ms"], plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, inputs=per_input,
     )
     for name, res in results.items():
         log(f"  {name} {h}x{w}: " + ", ".join(
@@ -834,8 +896,16 @@ def phase_main_path(tiles) -> dict:
     c0, c1 = runs[False]["launches"], runs[True]["launches"]
     check(c0["color_deconv"] > 0, "unfused run launched no color_deconv kernel")
     check(c1["feature_fused"] > 0, "fused run launched no feature_fused kernel")
-    check(c0["morph_recon"] > 0 and c1["morph_recon"] > 0,
-          "a run launched no morph_recon kernel")
+    for fused, res in runs.items():
+        # One launch per reconstruction: as many as the scheduler ran
+        # ops that reconstruct (4 per tile's stages).
+        n_recon = sum(res["profile"].get(op, {}).get("gpu", 0) for op in RECON_OPS)
+        check(n_recon >= len(RECON_OPS) * len(tiles), f"fused={fused}: {n_recon} reconstructions")
+        check(res["launches"]["morph_recon"] == n_recon,
+              f"fused={fused}: {res['launches']['morph_recon']} morph_recon launches "
+              f"for {n_recon} reconstructions")
+        log(f"  fused={fused}: {n_recon} reconstructions, "
+            f"{res['launches']['morph_recon']} morph_recon launches")
     for cid, f0 in runs[False]["feats"].items():
         f1 = runs[True]["feats"][cid]
         check(f0["n_objects"] == f1["n_objects"], f"tile {cid}: n_objects differ")
@@ -929,7 +999,7 @@ def main() -> int:
             bound_ms=res["bound_ms"], bound_by=res["bound_by"],
             library_ms=res.get("library_ms"),
             **{k: v for k, v in res.items()
-               if k in ("launches_per_call", "bound_all_launches_ms", "gqa_d128", "build")},
+               if k in ("inputs", "gqa_d128", "build")},
         ))
     log("kernels " + "; ".join(
         f"{r['name']}: launches={r['launches']} max_abs_err={r['max_abs_err']:.3g} "

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import morph_recon as MR
 from repro_torch.kernels import ops, ref
 
 pytestmark = pytest.mark.gpu
@@ -65,8 +66,138 @@ def test_cuda_morph_recon(hw):
     mask = torch.as_tensor(mask, device=dev)
     ops.reset_launch_counts()
     got = ops.morph_recon(marker, mask)
-    assert ops.launch_counts()["morph_recon"] >= 1
-    torch.testing.assert_close(got, ref.morph_recon_ref(marker, mask), rtol=0.0, atol=1e-5)
+    assert ops.launch_counts()["morph_recon"] == 1  # one launch per reconstruction
+    assert torch.equal(got, ref.morph_recon_ref(marker, mask))
+
+
+# Inputs of the reconstruction at the kernel's sizes (the CPU model of its
+# schedule, tests/test_torch_morph_recon_schedule.py, takes them small).
+
+
+def _recon_random(h, w):
+    rng = np.random.default_rng(h + w)
+    mask = rng.uniform(0, 255, (h, w)).astype(np.float32)
+    marker = np.maximum(mask - 55.0, 0.0) * (rng.uniform(0, 1, (h, w)) > 0.6)
+    return marker.astype(np.float32), mask
+
+
+def _recon_snake(h, w):
+    """A one-pixel serpentine path: lines every h/8 rows joined at
+    alternate ends, crossing tile borders all along its length."""
+    gap = max(2, h // 8)
+    mask = np.zeros((h, w), np.float32)
+    rows = list(range(0, h, gap))
+    for i, r in enumerate(rows):
+        mask[r, :] = 200.0
+        if i + 1 < len(rows):
+            mask[r:rows[i + 1] + 1, w - 1 if i % 2 == 0 else 0] = 200.0
+    marker = np.zeros_like(mask)
+    marker[0, 0] = 255.0
+    return marker, mask
+
+
+def _recon_staircase(h, w):
+    """(i, 2i), (i, 2i + 1): every 32 rows the path steps from one 32x64
+    tile's bottom-right corner pixel to the next tile's top-left one."""
+    mask = np.zeros((h, w), np.float32)
+    i = np.arange(min(h, w // 2))
+    mask[i, 2 * i] = mask[i, 2 * i + 1] = 150.0
+    marker = np.zeros_like(mask)
+    marker[0, 0] = 150.0
+    return marker, mask
+
+
+def _recon_fill_holes(h, w):
+    """fill_holes' input: the background flooded from a 255 frame, with
+    square rings of objects enclosing holes."""
+    rng = np.random.default_rng(h * w)
+    obj = np.zeros((h, w), bool)
+    for _ in range(h * w // 4000):
+        y, x = int(rng.integers(0, h - 40)), int(rng.integers(0, w - 40))
+        s = int(rng.integers(6, 40))
+        obj[y:y + s, x:x + s] = True
+        obj[y + 2:y + s - 2, x + 2:x + s - 2] = False
+    inv = (~obj).astype(np.float32) * 255.0
+    border = np.zeros((h, w), np.float32)
+    border[0, :] = border[-1, :] = border[:, 0] = border[:, -1] = 255.0
+    return np.minimum(border, inv), inv
+
+
+def _recon_constant(h, w):
+    return np.full((h, w), 7.0, np.float32), np.full((h, w), 7.0, np.float32)
+
+
+_RECON_INPUTS = {"random": _recon_random, "snake": _recon_snake,
+                 "staircase": _recon_staircase, "fill_holes": _recon_fill_holes,
+                 "constant": _recon_constant}
+
+
+@pytest.mark.parametrize("name", list(_RECON_INPUTS))
+@pytest.mark.parametrize("hw", [(1000, 1500), (4096, 4096)])
+def test_cuda_morph_recon_bit_identical(name, hw):
+    """One launch, bit-identical to the plain version, whatever order
+    the blocks visit the tiles in; the kernel's rounds and tile visits."""
+    dev = _cuda()
+    marker, mask = (torch.as_tensor(a, device=dev) for a in _RECON_INPUTS[name](*hw))
+    ops.reset_launch_counts()
+    got = ops.morph_recon(marker, mask)
+    assert ops.launch_counts()["morph_recon"] == 1
+    assert torch.equal(got, ref.morph_recon_ref(marker, mask))
+    rounds, visits, sweeps = MR.last_stats.tolist()
+    n_tiles = -(-hw[0] // MR.TILE_H) * -(-hw[1] // MR.TILE_W)
+    assert rounds >= 1 and n_tiles <= visits <= rounds * n_tiles
+    assert visits <= sweeps <= MR.MAX_SWEEPS * visits
+    if name == "constant":
+        assert (rounds, visits, sweeps) == (1, n_tiles, n_tiles)
+
+
+@pytest.mark.parametrize("hw", [(1, 4096), (4096, 1), (1, 1500), (1000, 1), (33, 65)])
+def test_cuda_morph_recon_thin_and_ragged(hw):
+    dev = _cuda()
+    marker, mask = (torch.as_tensor(a, device=dev) for a in _recon_random(*hw))
+    assert torch.equal(ops.morph_recon(marker, mask), ref.morph_recon_ref(marker, mask))
+
+
+def test_cuda_morph_recon_makes_no_host_sync():
+    """The wrapper issues one launch and returns: under the sync debug
+    mode "error" any synchronising call would raise."""
+    dev = _cuda()
+    marker, mask = (torch.as_tensor(a, device=dev) for a in _recon_fill_holes(1000, 1500))
+    want = ref.morph_recon_ref(marker, mask)
+    ops.morph_recon(marker, mask)  # builds and loads the kernel first
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ops.morph_recon(marker, mask)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ops.launch_counts()["morph_recon"] == 1
+    assert torch.equal(got, want)
+
+
+def test_cuda_morph_recon_step_keeps_its_meaning():
+    """``morph_recon_step`` is one round: ``(out, changed)`` with
+    ``changed`` nonzero unless ``min(marker, mask)`` is already the
+    fixpoint; stepping until it is 0 gives the reconstruction."""
+    dev = _cuda()
+    marker, mask = (torch.as_tensor(a, device=dev) for a in _recon_random(300, 500))
+    want = ref.morph_recon_ref(marker, mask)
+    ops.reset_launch_counts()
+    cur, changed = MR.morph_recon_step(marker, mask)
+    assert changed.device == dev and changed.dtype == torch.int32 and changed.shape == (1,)
+    assert int(changed.item()) != 0
+    steps = 1
+    while int(changed.item()):
+        cur, changed = MR.morph_recon_step(cur, mask)
+        steps += 1
+    assert torch.equal(cur, want)
+    assert ops.launch_counts()["morph_recon"] == steps
+    const = torch.full((64, 128), 3.0, device=dev)
+    out, changed = MR.morph_recon_step(const, const)
+    assert int(changed.item()) == 0 and torch.equal(out, const)
+    with pytest.raises(ValueError, match="alias"):
+        MR.morph_recon_step(marker, mask, out=marker)
 
 
 @pytest.mark.parametrize("hw", [(128, 128), (1000, 1500), (4096, 4096)])
