@@ -26,9 +26,13 @@ and 1000x1500; flash_attention at
 B=4, H=32, S=1024, D=64, bf16, causal (the zamba2-1.2B serving prefill),
 plus a ragged S=1000 and a float32 case, and timed at B=1, H=32, Hkv=8,
 S=1024, D=128, bf16, causal (the dense models' GQA shape; SDPA with
-``enable_gqa``); decode_attention at B=4,
-Hq=Hkv=32, S=2048, D=64, bf16, lengths [2048, 1025, 700, 1], plus a GQA
-case (Hq=8, Hkv=2); mamba2_chunk_scan at C=8, H=4*64, F=64*64, float32.
+``enable_gqa``); decode_attention checked on a float32 GQA case (Hq=8,
+Hkv=2), then at B=4, Hq=Hkv=32, S=2048, D=64, bf16, lengths [2048,
+1025, 700, 1] (zamba2's decode) and at B=4, Hq=32, Hkv=8, S=16384,
+D=128, bf16, lengths [16384, 9000, 4097, 1] (the dense models'
+long-context GQA decode), one launch per call at each, with the split
+plan the wrapper chose; mamba2_chunk_scan at C=8, H=4*64, F=64*64,
+float32.
 
 Phase 2, the WSI main path: the Manager over one WorkerRuntime with one
 ``gpu`` lane (PATS, locality) runs 8 tiles of 4096x4096, once with
@@ -408,6 +412,134 @@ def phase_kernels(tile) -> dict:
     return results
 
 
+def kernel_device_ms(fn, n: int, flush) -> float | None:
+    """Device time per call of what ``fn`` runs on the card, from
+    ``torch.profiler`` over ``n`` calls (L2 flushed before each; the
+    kernels a lone ``flush`` runs are left out); None if the profiler saw
+    none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_events(body):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            body()
+            torch.cuda.synchronize()
+        return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+    def calls():
+        for _ in range(n):
+            flush()
+            fn()
+
+    fn()
+    torch.cuda.synchronize()
+    flushes = {e.name for e in device_events(flush)}
+    us = [e.time_range.elapsed_us() for e in device_events(calls) if e.name not in flushes]
+    return sum(us) / n / 1e3 if us else None
+
+
+def host_us_per_call(fn, n: int) -> float:
+    """Host time to issue one call, over ``n`` calls back to back (the
+    device runs behind; synchronised before and after)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+#: decode_attention's timed shapes: zamba2-1.2B's decode step (row 6 of
+#: PERF.md's kernel table) and the dense models' long-context GQA decode
+#: with mistral-nemo-12b's heads (row 6a): (B, Hq, Hkv, S, D, lengths).
+DECODE_SHAPES = {
+    "main": (4, 32, 32, 2048, 64, [2048, 1025, 700, 1]),
+    "gqa_long": (4, 32, 8, 16384, 128, [16384, 9000, 4097, 1]),
+}
+
+
+def decode_records(flush, seed: int = 44) -> dict:
+    """decode_attention (bfloat16) at :data:`DECODE_SHAPES`: checked
+    against the plain version, one launch per wrapper call, then timed
+    beside the plain version and ``scaled_dot_product_attention`` with a
+    length mask (``enable_gqa``). The bound counts each valid K/V row of
+    the Hkv heads once, plus q and out. ``ms`` and ``library_ms`` flush
+    L2 by zeroing 256 MB, as every kernel of phase 1 (the flush leaves
+    L2 full of dirty lines, which the kernel's reads must write back);
+    ``*_clean_l2`` flush it by reading 256 MB instead (L2 holds clean
+    lines, as after a decode step's weight reads), and ``device_ms`` is
+    the profiler's kernel time with that flush. Also the host's time to
+    issue one call and the split plan of the timed launches.
+
+    The check scales to the output: an element may differ from the plain
+    version by 2**-6 of its row's largest magnitude (two bfloat16 ulps of
+    that value; P is rounded to bfloat16 before P V, which moves an
+    output by far less at these lengths). At 16384 keys a row's outputs
+    are about 0.013 in size, so a split left out of the merge, which
+    shifts them by several 1e-3, fails it."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(seed)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    buf = torch.ones(256 << 20, dtype=torch.uint8, device=dev)
+    clean = buf.max  # reads 256 MB: L2 left holding clean lines
+    bf16_tol = (1e-2, 1e-2)  # SDPA, the yardstick: bfloat16 rounding of P and of the output
+    out = {}
+    for key, (b, hq, hkv, s, d, lengths) in DECODE_SHAPES.items():
+        q = torch.as_tensor(rng.normal(0, 1, (b, hq, d)).astype(np.float32), device=dev).bfloat16()
+        k, v = (torch.as_tensor(rng.normal(0, 1, (b, hkv, s, d)).astype(np.float32),
+                                device=dev).bfloat16() for _ in range(2))
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        n0 = DA.launches
+        got = DA.decode_attention_cuda(q, k, v, lens)
+        per_call = DA.launches - n0
+        check(per_call == 1, f"decode_attention {key}: {per_call} launches for one call")
+        want = ref.decode_attention_ref(q, k, v, lens)
+        row_tol = 2.0**-6 * want.float().abs().amax(-1, keepdim=True)
+        err = max_err(got, want, 0.0, row_tol, f"decode_attention {key} shape")
+        mask = (torch.arange(s, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+        sdpa = lambda q=q, k=k, v=v, mask=mask: F.scaled_dot_product_attention(  # noqa: E731
+            q[:, :, None, :], k, v, attn_mask=mask, enable_gqa=True)
+        max_err(sdpa()[:, :, 0], want, *bf16_tol, f"sdpa length mask {key} (yardstick)")
+        del want, got
+        valid = sum(lengths)
+        bms, by = bound(2 * b * hq * d * 2 + 2 * valid * hkv * d * 2 + 4 * b,
+                        4.0 * valid * hq * d)
+        call = lambda q=q, k=k, v=v, lens=lens: DA.decode_attention_cuda(q, k, v, lens)  # noqa: E731
+        rec = dict(
+            shape=[b, hq, hkv, s, d], lengths=lengths, max_abs_err=err, launches_per_call=per_call,
+            ms=time_ms(call, 50, flush),
+            plain_ms=time_ms(lambda: ref.decode_attention_ref(q, k, v, lens), 5, flush),
+            bound_ms=bms, bound_by=by, library_ms=time_ms(sdpa, 50, flush))
+        rec["ms_clean_l2"] = time_ms(call, 50, clean)
+        rec["library_ms_clean_l2"] = time_ms(sdpa, 50, clean)
+        rec["device_ms"] = kernel_device_ms(call, 20, clean)
+        rec["host_us_per_call"] = host_us_per_call(call, 200)
+        p = DA.last_plan
+        rec["plan"] = dict(splits=p.splits, split_keys=p.split_keys, heads_per_block=p.heads,
+                           blocks=p.blocks, blocks_per_sm=p.blocks / sms)
+        log(f"  decode_attention {key} B={b} Hq={hq} Hkv={hkv} S={s} D={d} bf16 {lengths}: "
+            f"{rec['ms']:.4f} ms (bound {bms:.4f}, SDPA {rec['library_ms']:.4f}, plain "
+            f"{rec['plain_ms']:.4f}; L2 flushed clean {rec['ms_clean_l2']:.4f}, SDPA "
+            f"{rec['library_ms_clean_l2']:.4f}, profiler {rec['device_ms']}, host "
+            f"{rec['host_us_per_call']:.1f} us per call), {per_call} launch per call, "
+            f"max abs err {err:.3g}, "
+            f"plan {rec['plan']}")
+        out[key] = rec
+    return out
+
+
 def phase_lm_kernels() -> dict:
     """sobel_stats and the three serving-path kernels against their plain
     versions, timed at the serving path's shapes."""
@@ -483,31 +615,15 @@ def phase_lm_kernels() -> dict:
         bound_ms=bms, bound_by=by, library_ms=time_ms(sdpa, 20, flush))
     del want
 
-    # decode_attention: GQA check, then the decode shape (ragged lengths).
+    # decode_attention: GQA check, then the decode shapes (ragged lengths).
     q = gpu(normal(3, 8, 64))
     k, v = gpu(normal(3, 2, 777, 64)), gpu(normal(3, 2, 777, 64))
     lens = torch.tensor([777, 300, 1], dtype=torch.int32, device=dev)
     e = max_err(DA.decode_attention_cuda(q, k, v, lens), ref.decode_attention_ref(q, k, v, lens),
                 3e-5, 3e-5, "decode_attention GQA")
     log(f"  decode_attention GQA Hq=8 Hkv=2 S=777 float32: max abs err {e:.3g}")
-    b, h, s, d = 4, 32, 2048, 64
-    lengths = [2048, 1025, 700, 1]
-    q = gpu(normal(b, h, d), torch.bfloat16)
-    k, v = (gpu(normal(b, h, s, d), torch.bfloat16) for _ in range(2))
-    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
-    err = max_err(DA.decode_attention_cuda(q, k, v, lens), ref.decode_attention_ref(q, k, v, lens),
-                  *bf16_tol, "decode_attention decode shape")
-    mask = (torch.arange(s, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        q[:, :, None, :], k, v, attn_mask=mask, enable_gqa=True)
-    max_err(sdpa()[:, :, 0], ref.decode_attention_ref(q, k, v, lens), *bf16_tol,
-            "sdpa length mask (yardstick)")
-    valid = sum(lengths)
-    bms, by = bound(2 * b * h * d * 2 + 2 * valid * h * d * 2 + 4 * b, 4.0 * valid * h * d)
-    results["decode_attention"] = dict(
-        max_abs_err=err, ms=time_ms(lambda: DA.decode_attention_cuda(q, k, v, lens), 50, flush),
-        plain_ms=time_ms(lambda: ref.decode_attention_ref(q, k, v, lens), 10, flush),
-        bound_ms=bms, bound_by=by, library_ms=time_ms(sdpa, 50, flush))
+    recs = decode_records(flush)
+    results["decode_attention"] = dict(recs.pop("main"), **recs)
 
     # mamba2_chunk_scan: rounded multiply, then add, as the plain version.
     c, h, f = 8, 4 * 64, 64 * 64
@@ -999,7 +1115,7 @@ def main() -> int:
             bound_ms=res["bound_ms"], bound_by=res["bound_by"],
             library_ms=res.get("library_ms"),
             **{k: v for k, v in res.items()
-               if k in ("inputs", "gqa_d128", "build")},
+               if k in ("inputs", "gqa_d128", "gqa_long", "plan", "shape", "build")},
         ))
     log("kernels " + "; ".join(
         f"{r['name']}: launches={r['launches']} max_abs_err={r['max_abs_err']:.3g} "

@@ -9,6 +9,8 @@ a machine with a card and no JAX; there the repository's
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -271,11 +273,26 @@ def test_cuda_flash_attention_bf16_misaligned_raises():
     assert ops.launch_counts()["flash_attention"] == 0
 
 
+def _decode_want(q, k, v, lens):
+    """The plain version, with zeros where a length is 0 (the plain
+    softmax over no key gives NaN there; the kernel, like the TPU
+    kernel, gives zeros)."""
+    want = ref.decode_attention_ref(q, k, v, lens)
+    return torch.where((lens > 0)[:, None, None].to(want.device), want, torch.zeros_like(want))
+
+
 @pytest.mark.parametrize("b,hq,hkv,s,d,lengths", [
     (4, 32, 32, 2048, 64, [2048, 1025, 700, 1]),
     (3, 8, 2, 512, 64, [512, 171, 1]),
     (2, 16, 8, 1000, 128, [1000, 999]),
     (2, 4, 4, 77, 32, [1, 77]),
+    (2, 32, 8, 16384, 128, [16384, 4097]),       # group 4 (mistral-nemo-12b), long
+    (2, 40, 8, 3000, 128, [3000, 1234]),         # group 5
+    (2, 40, 10, 3000, 128, [2999, 3000]),        # group 4 (phi3-medium-14b)
+    (2, 56, 8, 5000, 128, [5000, 2049]),         # group 7 (yi-34b)
+    (4, 8, 2, 600, 64, [0, 1, 600, 77]),         # lengths 0, 1, S, inside a tile
+    (3, 12, 4, 333, 32, [333, 0, 17]),
+    (2, 24, 2, 700, 64, [700, 300]),             # group 12: two chunks of 8 heads
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_cuda_decode_attention(b, hq, hkv, s, d, lengths, dtype):
@@ -285,7 +302,8 @@ def test_cuda_decode_attention(b, hq, hkv, s, d, lengths, dtype):
     ops.reset_launch_counts()
     got = ops.decode_attention(q, k, v, lens)
     assert ops.launch_counts()["decode_attention"] == 1
-    torch.testing.assert_close(got, ref.decode_attention_ref(q, k, v, lens), **_TOL[dtype])
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got, _decode_want(q, k, v, lens), **_TOL[dtype])
 
 
 def test_cuda_decode_attention_length_zero_gives_zeros():
@@ -296,6 +314,90 @@ def test_cuda_decode_attention_length_zero_gives_zeros():
     assert bool((got[0] == 0).all())
     torch.testing.assert_close(got[1:], ref.decode_attention_ref(q[1:], k[1:], v[1:], lens[1:]),
                                **_TOL[torch.float32])
+
+
+def test_cuda_decode_attention_clamps_lengths():
+    """A length past S attends to all of S; a negative one gives zeros."""
+    dev = _cuda()
+    q, k, v = _qkv((2, 8, 128), (2, 2, 1000, 128), torch.bfloat16, dev, np.random.default_rng(1))
+    got = ops.decode_attention(q, k, v, torch.tensor([1500, -4], dtype=torch.int32, device=dev))
+    want = ref.decode_attention_ref(q, k, v, torch.tensor([1000, 1], dtype=torch.int32,
+                                                          device=dev))
+    torch.testing.assert_close(got[0], want[0], **_TOL[torch.bfloat16])
+    assert bool((got[1] == 0).all())
+
+
+def _decode_case(dev, dtype=torch.bfloat16):
+    q, k, v = _qkv((4, 32, 128), (4, 8, 8192, 128), dtype, dev, np.random.default_rng(8))
+    lens = torch.tensor([8192, 4500, 2049, 1], dtype=torch.int32, device=dev)
+    return q, k, v, lens
+
+
+def test_cuda_decode_attention_one_device_launch_per_call():
+    """The splits are combined inside the one launch: the profiler sees
+    a single device kernel per call (the workspace is made once)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = _cuda()
+    q, k, v, lens = _decode_case(dev)
+    ops.decode_attention(q, k, v, lens)  # builds the kernel, makes the workspace
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            ops.decode_attention(q, k, v, lens)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert ops.launch_counts()["decode_attention"] == 3
+    assert len(names) == 3 and all(re.search(r"decode_(tc_)?kernel<", n) for n in names), names
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_decode_attention_back_to_back_calls_are_bit_equal(dtype):
+    """The splits merge in split order, whichever block arrives last."""
+    dev = _cuda()
+    q, k, v, lens = _decode_case(dev, dtype)
+    first = ops.decode_attention(q, k, v, lens)
+    for _ in range(5):
+        assert torch.equal(ops.decode_attention(q, k, v, lens), first)
+    torch.testing.assert_close(first, _decode_want(q, k, v, lens), **_TOL[dtype])
+
+
+def test_cuda_decode_attention_alternating_shapes_on_one_stream():
+    """Calls of different shapes share the stream's workspace: each
+    launch leaves its counters 0 for the next, and a larger shape grows
+    the workspace."""
+    dev = _cuda()
+    cases = [_decode_case(dev)]
+    for b, hq, hkv, s, d, lengths in ((4, 32, 32, 2048, 64, [2048, 1025, 700, 1]),
+                                      (2, 56, 8, 20000, 128, [20000, 15000])):
+        q, k, v = _qkv((b, hq, d), (b, hkv, s, d), torch.bfloat16, dev,
+                       np.random.default_rng(s))
+        cases.append((q, k, v, torch.tensor(lengths, dtype=torch.int32, device=dev)))
+    firsts = [ops.decode_attention(*c) for c in cases]
+    for c, first in zip(cases, firsts):
+        torch.testing.assert_close(first, _decode_want(*c), **_TOL[torch.bfloat16])
+    for _ in range(3):
+        for c, first in zip(cases, firsts):
+            assert torch.equal(ops.decode_attention(*c), first)
+
+
+def test_cuda_decode_attention_makes_no_host_sync():
+    """The wrapper reads no length and waits on nothing: under the sync
+    debug mode "error" any synchronising call would raise."""
+    dev = _cuda()
+    q, k, v, lens = _decode_case(dev)
+    want = ops.decode_attention(q, k, v, lens)  # builds, makes the workspace
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ops.decode_attention(q, k, v, lens)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ops.launch_counts()["decode_attention"] == 1
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("c,h,f", [(8, 256, 4096), (3, 5, 7), (1, 16, 64)])
