@@ -18,11 +18,16 @@ time, the bound from bytes and operations, and, for the attention
 kernels, the time of ``scaled_dot_product_attention`` on the same
 function. WSI kernels (color_deconv, morph_recon, feature_fused) at
 4096x4096 (strided uint8 channel views of a tile) and a ragged
-1000x1500; morph_recon on each of the four (marker, mask) pairs that
+1000x1500 (feature_fused also on a crop of an HWC tile, its generic
+path); feature_fused and sobel_stats (4096x4096, and 1000x1500 plain
+and strided) each one device kernel per call, with the profiler's
+device time (L2 flushed clean) and that of a PyTorch copy of the same
+bytes beside the event time; the fused op at 4096x4096 on the card
+against its ``cpu`` variant on the same segmented tile; morph_recon on
+each of the four (marker, mask) pairs that
 one tile's ops hand it (captured from ``ops.morph_recon``), each
 bit-identical to the plain version in one launch, with the rounds, tile
-visits and in-tile sweeps the kernel counts; sobel_stats at 4096x4096
-and 1000x1500; flash_attention at
+visits and in-tile sweeps the kernel counts; flash_attention at
 B=4, H=32, S=1024, D=64, bf16, causal (the zamba2-1.2B serving prefill),
 plus a ragged S=1000 and a float32 case, and timed at B=1, H=32, Hkv=8,
 S=1024, D=128, bf16, causal (the dense models' GQA shape; SDPA with
@@ -356,6 +361,17 @@ def phase_kernels(tile) -> dict:
         )
         max_err(got[3], want[3], 1e-4, 0.0, "feature_fused stats 1000x1500")
         log(f"  feature_fused 1000x1500 {dtype.__name__}: max abs err {e:.3g}")
+    # feature_fused's generic path on channel views: a crop of an HWC tile
+    # (rows not 16-byte aligned, row stride not 3W).
+    big = np.random.default_rng(46).integers(0, 256, (1001, 1501, 3)).astype(np.uint8)
+    crop = torch.as_tensor(big, device=dev)[1:, 1:]
+    r, g, b = crop[..., 0], crop[..., 1], crop[..., 2]
+    check(not FF.interleaved(r, g, b), "a crop took the interleaved path")
+    got, want = FF.feature_fused_cuda(r, g, b), ref.feature_fused_ref(r, g, b)
+    e = max(max_err(k, p, 3e-5, 1e-4, "feature_fused 1000x1500 crop")
+            for k, p in zip(got[:3], want[:3]))
+    max_err(got[3], want[3], 1e-4, 0.0, "feature_fused stats 1000x1500 crop")
+    log(f"  feature_fused 1000x1500 crop of an HWC tile: max abs err {e:.3g}")
     mask = torch.as_tensor(rng.uniform(0, 255, (1000, 1500)).astype(np.float32), device=dev)
     marker = torch.clamp_min(mask - 55.0, 0.0) * torch.as_tensor(
         (rng.uniform(0, 1, (1000, 1500)) > 0.6).astype(np.float32), device=dev
@@ -383,16 +399,11 @@ def phase_kernels(tile) -> dict:
         bound_ms=bms, bound_by=by,
     )
 
-    got, want = FF.feature_fused_cuda(r, g, b), ref.feature_fused_ref(r, g, b)
-    err = max(max_err(k, p, 3e-5, 1e-4, f"feature_fused {h}x{w}") for k, p in zip(got[:3], want[:3]))
-    max_err(got[3], want[3], 1e-4, 0.0, f"feature_fused stats {h}x{w}")
-    bms, by = bound(3 * px + 12 * px + 24, 60 * px)
-    results["feature_fused"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: FF.feature_fused_cuda(r, g, b), 50, flush),
-        plain_ms=time_ms(lambda: ref.feature_fused_ref(r, g, b), 10, flush),
-        bound_ms=bms, bound_by=by,
-    )
+    check(FF.interleaved(r, g, b), "the tile's channel views missed feature_fused's fast path")
+    results["feature_fused"] = stencil_records(flush, rgb=rgb)["feature_fused"]
+    check(results["feature_fused"]["kernels_per_call"] == 1,
+          f"feature_fused: {results['feature_fused']['kernels_per_call']} device kernels per call")
+    results["feature_fused"]["fused_op_vs_cpu"] = fused_op_check(tile)
 
     # morph_recon on the (marker, mask) pairs the tile's four ops hand it:
     # bit-identical to the plain version, one launch each, rounds and
@@ -412,20 +423,37 @@ def phase_kernels(tile) -> dict:
     return results
 
 
-def kernel_device_ms(fn, n: int, flush) -> float | None:
-    """Device time per call of what ``fn`` runs on the card, from
-    ``torch.profiler`` over ``n`` calls (L2 flushed before each; the
-    kernels a lone ``flush`` runs are left out); None if the profiler saw
-    none."""
+def device_events(body) -> list[tuple[str, float]]:
+    """``(name, microseconds)`` of each device kernel ``torch.profiler``
+    records while ``body`` runs (synchronised before the profiler stops).
+    The profiler drops a kernel's record now and then, mostly the first
+    of a session, and never adds one: a marker kernel
+    (``torch.cuda._sleep``'s ``spin_kernel``) runs first and last, and is
+    left out."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def device_events(body):
+    def session(fn):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            body()
+            torch.cuda._sleep(1000)
+            fn()
+            torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-        return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                if e.device_type == DeviceType.CUDA]
+
+    return [(name, us) for name, us in session(body) if "spin_kernel" not in name]
+
+
+def kernel_device_ms(fn, n: int, flush) -> float | None:
+    """Device time per call of what ``fn`` runs on the card, from
+    ``torch.profiler`` over ``n`` calls (L2 flushed before each; the
+    kernels a lone ``flush`` runs are left out): each kernel's mean time
+    times the number of times it runs per call (its count over ``n``,
+    rounded, so that a dropped record does not lower the time); None if
+    the profiler saw none."""
+    import torch
 
     def calls():
         for _ in range(n):
@@ -434,9 +462,121 @@ def kernel_device_ms(fn, n: int, flush) -> float | None:
 
     fn()
     torch.cuda.synchronize()
-    flushes = {e.name for e in device_events(flush)}
-    us = [e.time_range.elapsed_us() for e in device_events(calls) if e.name not in flushes]
-    return sum(us) / n / 1e3 if us else None
+    flushes = {name for name, _ in device_events(flush)}
+    by_name: dict[str, list[float]] = {}
+    for name, us in device_events(calls):
+        if name not in flushes:
+            by_name.setdefault(name, []).append(us)
+    if not by_name:
+        return None
+    return sum(sum(us) / len(us) * round(len(us) / n) for us in by_name.values()) / 1e3
+
+
+def device_kernels_per_call(fn, n: int = 3, tries: int = 3) -> float:
+    """Device kernels per call of ``fn`` (after a warm-up): the most the
+    profiler records in ``tries`` sessions of ``n`` calls (it drops a
+    record now and then, and never adds one)."""
+    import torch
+
+    def calls():
+        for _ in range(n):
+            fn()
+
+    fn()
+    torch.cuda.synchronize()
+    return max(len(device_events(calls)) for _ in range(tries)) / n
+
+
+def stencil_records(flush, rgb=None, gray=None) -> dict:
+    """feature_fused on the uint8 channel views of ``rgb`` ((H, W, 3) on
+    the card) and sobel_stats on the float32 plane ``gray``, for those
+    given. Each is checked against its plain version (feature_fused's
+    planes at rtol 3e-5, atol 1e-4, sobel_stats' mag bit for bit, the
+    moments at rtol 1e-4), its device kernels per call counted by the
+    profiler, then timed: ``ms`` with the zeroing flush, as every kernel
+    of phase 1; ``ms_clean_l2`` with a reading flush and ``device_ms``,
+    the profiler's kernel time with that flush (see
+    :func:`decode_records`); beside the plain version, the bound and
+    ``copy_device_ms``, the profiler's time (clean flush) of a PyTorch
+    copy that moves the same bytes (the uint8 tile cast to float32 in
+    its own layout; the plane copied), the rate this card reaches on
+    such a mix of reads and writes."""
+    import torch
+
+    from repro_torch.kernels import feature_fused as FF
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sobel_stats as SS
+
+    clean = torch.ones(256 << 20, dtype=torch.uint8, device=torch.device("cuda", 0)).max
+    cases = {}
+    if rgb is not None:
+        h, w = int(rgb.shape[0]), int(rgb.shape[1])
+        r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+        got, want = FF.feature_fused_cuda(r, g, b), ref.feature_fused_ref(r, g, b)
+        err = max(max_err(k, p, 3e-5, 1e-4, f"feature_fused {h}x{w}")
+                  for k, p in zip(got[:3], want[:3]))
+        max_err(got[3], want[3], 1e-4, 0.0, f"feature_fused stats {h}x{w}")
+        del got, want
+        cast = torch.empty(3 * h * w, dtype=torch.float32, device=rgb.device)
+        cases["feature_fused"] = ([h, w], err, lambda: FF.feature_fused_cuda(r, g, b),
+                                  lambda: ref.feature_fused_ref(r, g, b),
+                                  bound(15 * h * w + 24, 60 * h * w),
+                                  lambda: cast.copy_(rgb.reshape(-1)))
+    if gray is not None:
+        h, w = int(gray.shape[0]), int(gray.shape[1])
+        mag, st = SS.sobel_stats_cuda(gray)
+        want_mag, want_st = ref.sobel_stats_ref(gray)
+        err = max_err(mag, want_mag, 0.0, 0.0, f"sobel_stats {h}x{w}")
+        max_err(st, want_st, 1e-4, 0.0, f"sobel_stats stats {h}x{w}")
+        del mag, want_mag
+        plane = torch.empty_like(gray, memory_format=torch.contiguous_format)
+        cases["sobel_stats"] = ([h, w], err, lambda: SS.sobel_stats_cuda(gray),
+                                lambda: ref.sobel_stats_ref(gray),
+                                bound(8 * h * w + 12, 20 * h * w), lambda: plane.copy_(gray))
+    out = {}
+    for name, (shape, err, call, plain, (bms, by), copy) in cases.items():
+        rec = out[name] = dict(
+            shape=shape, max_abs_err=err, kernels_per_call=device_kernels_per_call(call),
+            ms=time_ms(call, 50, flush), plain_ms=time_ms(plain, 10, flush), bound_ms=bms,
+            bound_by=by, library_ms=None, ms_clean_l2=time_ms(call, 50, clean),
+            device_ms=kernel_device_ms(call, 20, clean),
+            copy_device_ms=kernel_device_ms(copy, 20, clean))
+        log(f"  {name} {shape[0]}x{shape[1]}: {rec['ms']:.4f} ms (bound {bms:.4f}, plain "
+            f"{rec['plain_ms']:.4f}; L2 flushed clean {rec['ms_clean_l2']:.4f}, profiler "
+            f"{rec['device_ms']}, a copy of the same bytes {rec['copy_device_ms']}), "
+            f"{rec['kernels_per_call']:g} device kernel(s) per call, max abs err {err:.3g}")
+    return out
+
+
+def fused_op_check(tile) -> dict:
+    """The fused op at full size: ``_feature_fused_accel`` on the card
+    against the ``cpu`` variant ``_feature_fused_cpu`` (numpy) on the
+    same segmented state of ``tile`` (the segmentation ops run on the
+    card, their state brought to the host), at the bars of
+    ``tests/test_torch_app.py``. Returns each key's max abs error."""
+    import numpy as np
+    import torch
+
+    from repro_torch.app._device import to_host
+    from repro_torch.app.pipeline import (
+        OP_IMPLS, _SEG_ORDER, _feature_fused_accel, _feature_fused_cpu,
+    )
+
+    dev = torch.device("cuda", 0)
+    state = tile
+    for name in _SEG_ORDER:
+        state = OP_IMPLS[name][1](state, device=dev)
+    state = {k: to_host(v) for k, v in state.items()}
+    got, want = _feature_fused_accel(state, device=dev), _feature_fused_cpu(state)
+    errs = {}
+    for key, (rtol, atol) in (("hema", (3e-5, 3e-5)), ("eosin", (3e-5, 3e-5)),
+                              ("feat_pixel", (1e-3, 1e-4)), ("feat_gradient", (1e-3, 1e-4))):
+        g = torch.as_tensor(np.asarray(to_host(got[key]), np.float64))
+        w = torch.as_tensor(np.asarray(want[key], np.float64))
+        check(g.shape == w.shape, f"fused op {key}: shape {tuple(g.shape)} != {tuple(w.shape)}")
+        errs[key] = max_err(g, w, rtol, atol, f"fused op {key}, card vs cpu variant")
+    log(f"  fused op {tile.shape[0]}x{tile.shape[1]}, card vs cpu variant: max abs err {errs}")
+    return errs
 
 
 def host_us_per_call(fn, n: int) -> float:
@@ -562,20 +702,20 @@ def phase_lm_kernels() -> dict:
     results = {}
 
     # sobel_stats: the stencil's arithmetic is the plain version's, so the
-    # planes must be equal; the moments are summed in another order.
-    for hw in ((1000, 1500), (4096, 4096)):
-        gray = gpu(rng.uniform(0, 255, hw).astype(np.float32))
-        mag, st = SS.sobel_stats_cuda(gray)
-        want_mag, want_st = ref.sobel_stats_ref(gray)
-        err = max_err(mag, want_mag, 0.0, 0.0, f"sobel_stats {hw}")
-        max_err(st, want_st, 1e-4, 0.0, f"sobel_stats stats {hw}")
-        log(f"  sobel_stats {hw[0]}x{hw[1]}: max abs err {err:.3g}")
-    px = 4096 * 4096
-    bms, by = bound(4 * px + 4 * px + 12, 20 * px)
-    results["sobel_stats"] = dict(
-        max_abs_err=err, ms=time_ms(lambda: SS.sobel_stats_cuda(gray), 50, flush),
-        plain_ms=time_ms(lambda: ref.sobel_stats_ref(gray), 10, flush),
-        bound_ms=bms, bound_by=by, library_ms=None)
+    # planes must be equal; the moments are summed in another order. A
+    # ragged plane, also as a transposed (strided) view; 4096x4096 is
+    # checked and timed by stencil_records.
+    gray = gpu(rng.uniform(0, 255, (1000, 1500)).astype(np.float32))
+    for name, view in (("1000x1500", gray), ("1000x1500 strided", gray.t().contiguous().t())):
+        mag, st = SS.sobel_stats_cuda(view)
+        want_mag, want_st = ref.sobel_stats_ref(view)
+        err = max_err(mag, want_mag, 0.0, 0.0, f"sobel_stats {name}")
+        max_err(st, want_st, 1e-4, 0.0, f"sobel_stats stats {name}")
+        log(f"  sobel_stats {name}: max abs err {err:.3g}")
+    gray = gpu(rng.uniform(0, 255, (4096, 4096)).astype(np.float32))
+    results["sobel_stats"] = stencil_records(flush, gray=gray)["sobel_stats"]
+    check(results["sobel_stats"]["kernels_per_call"] == 1,
+          f"sobel_stats: {results['sobel_stats']['kernels_per_call']} device kernels per call")
 
     # flash_attention: ragged S and float32 checks, then the prefill shape.
     for (b, h, hkv, s, dt, tol) in ((2, 8, 2, 1000, torch.bfloat16, bf16_tol),
@@ -1115,7 +1255,9 @@ def main() -> int:
             bound_ms=res["bound_ms"], bound_by=res["bound_by"],
             library_ms=res.get("library_ms"),
             **{k: v for k, v in res.items()
-               if k in ("inputs", "gqa_d128", "gqa_long", "plan", "shape", "build")},
+               if k in ("inputs", "gqa_d128", "gqa_long", "plan", "shape", "build",
+                        "ms_clean_l2", "device_ms", "kernels_per_call", "copy_device_ms",
+                        "fused_op_vs_cpu")},
         ))
     log("kernels " + "; ".join(
         f"{r['name']}: launches={r['launches']} max_abs_err={r['max_abs_err']:.3g} "

@@ -5,7 +5,9 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
 own shared library with a plain C interface, loaded with ``ctypes``.
 No PyTorch headers are involved, so a build takes seconds. Libraries
 go to ``build/torch_kernels/`` at the repository root, named by a hash
-of the source and the flags: an unchanged source is built once.
+of the source, the ``csrc/`` headers it includes (``#include "x.cuh"``)
+and the flags: an unchanged source is built once, and an edited header
+rebuilds every source that includes it.
 
 A build happens at first use, never at import. A failed build raises;
 nothing falls back to the plain PyTorch versions.
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -49,10 +52,29 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda/bin)")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and the ``csrc/`` headers it includes, directly
+    or through another header, in the order first met."""
+    seen: list[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [CSRC / inc.decode() for inc in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha1()
+    for path in _sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str) -> tuple[Path, Path, subprocess.Popen | None]:

@@ -187,3 +187,17 @@ def test_build_target_is_keyed_by_source_hash(monkeypatch, tmp_path):
     before = _build._target("color_deconv")
     (tmp_path / "color_deconv.cu").write_text(src + "\n// edited\n")
     assert _build._target("color_deconv") != before
+
+
+def test_build_target_follows_included_headers(monkeypatch, tmp_path):
+    """A source that includes a ``csrc/`` header is rebuilt when the
+    header changes, and only the sources that include it are."""
+    for path in _build.CSRC.glob("*.cu*"):
+        (tmp_path / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {n: _build._target(n) for n in _build.KERNELS}
+    header = tmp_path / "strip_stencil.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build._target(n) for n in _build.KERNELS}
+    changed = {n for n in _build.KERNELS if after[n] != before[n]}
+    assert changed == {"feature_fused", "sobel_stats"}

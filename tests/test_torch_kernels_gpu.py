@@ -15,8 +15,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import feature_fused as FF
 from repro_torch.kernels import morph_recon as MR
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import sobel_stats as SS
 
 pytestmark = pytest.mark.gpu
 
@@ -25,6 +27,31 @@ def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     return torch.device("cuda", 0)
+
+
+def _device_kernel_names(fn, calls: int = 3, tries: int = 3) -> list[str]:
+    """Names of the device kernels ``calls`` calls of ``fn`` run, from
+    ``torch.profiler``: the fullest of ``tries`` sessions. The profiler
+    drops a kernel's record now and then, mostly the first of a session,
+    and never adds one: a marker kernel (``torch.cuda._sleep``'s
+    ``spin_kernel``) runs first and last in each session and is left out."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def session(body):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            body()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+    def body():
+        for _ in range(calls):
+            fn()
+
+    return max(([n for n in session(body) if "spin_kernel" not in n] for _ in range(tries)),
+               key=len)
 
 
 def _planes(h, w, dtype, rng):
@@ -37,13 +64,20 @@ def _planes(h, w, dtype, rng):
 
 
 @pytest.mark.parametrize("hw", [(128, 128), (1000, 1500), (4096, 4096)])
-@pytest.mark.parametrize("layout", ["planes_u8", "planes_f32", "interleaved_u8"])
+@pytest.mark.parametrize("layout", ["planes_u8", "planes_f32", "interleaved_u8", "crop_u8"])
 def test_cuda_color_deconv_and_feature_fused(hw, layout):
     dev = _cuda()
     rng = np.random.default_rng(7)
     if layout == "interleaved_u8":
         rgb = torch.as_tensor(rng.integers(0, 256, (*hw, 3)).astype(np.uint8), device=dev)
         r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+        # 16-byte aligned rows take the fast path (1500 px: 4500-byte rows do not)
+        assert FF.interleaved(r, g, b) == (hw[1] % 16 == 0)
+    elif layout == "crop_u8":  # a crop of a larger HWC tile: unaligned, row stride 3(W+1)
+        big = rng.integers(0, 256, (hw[0] + 1, hw[1] + 1, 3)).astype(np.uint8)
+        rgb = torch.as_tensor(big, device=dev)[1:, 1:]
+        r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+        assert not FF.interleaved(r, g, b)
     else:
         dtype = np.uint8 if layout == "planes_u8" else np.float32
         r, g, b = (torch.as_tensor(p, device=dev) for p in _planes(*hw, dtype, rng))
@@ -56,6 +90,7 @@ def test_cuda_color_deconv_and_feature_fused(hw, layout):
     torch.testing.assert_close(got[3], want[3], rtol=1e-4, atol=0.0)
     assert ops.launch_counts()["color_deconv"] == 1
     assert ops.launch_counts()["feature_fused"] == 1
+    assert FF.last_plan == FF.plan(*hw, torch.cuda.get_device_properties(dev).multi_processor_count)
 
 
 @pytest.mark.parametrize("hw", [(128, 128), (192, 384), (1000, 1500)])
@@ -215,6 +250,126 @@ def test_cuda_sobel_stats(hw):
     assert ops.launch_counts()["sobel_stats"] == 1
 
 
+@pytest.mark.parametrize("view", ["contiguous", "transposed", "column_crop", "row_strided"])
+def test_cuda_sobel_stats_views(view):
+    """float32 planes the fast path takes (contiguous, 16-byte aligned
+    rows) and those it leaves to the strided path; mag bit-equal."""
+    dev = _cuda()
+    base = torch.as_tensor(np.random.default_rng(6).uniform(0, 255, (1002, 1504))
+                           .astype(np.float32), device=dev)
+    gray = {"contiguous": base[:1000, :1500], "transposed": base.t().contiguous().t()[:1000],
+            "column_crop": base[1:, 1:], "row_strided": base[::2]}[view]
+    assert SS.rows_aligned(gray) == (view in ("contiguous", "row_strided"))
+    mag, stats = ops.sobel_stats(gray)
+    want_mag, want_stats = ref.sobel_stats_ref(gray)
+    torch.testing.assert_close(mag, want_mag, rtol=0.0, atol=0.0)
+    torch.testing.assert_close(stats, want_stats, rtol=1e-4, atol=0.0)
+
+
+def _stencil_case(kernel, dev, hw=(4096, 4096), layout="fast", seed=12):
+    """A call of ``kernel`` ("feature_fused" or "sobel_stats") on seeded
+    inputs: the fast path's layout (a contiguous HWC tile; a plane whose
+    rows start 16-byte aligned, 4-float padded), or the generic one (a
+    crop of an HWC tile; the plane's view 4 bytes in)."""
+    rng = np.random.default_rng(seed)
+    if kernel == "feature_fused":
+        big = torch.as_tensor(rng.integers(0, 256, (hw[0] + 1, hw[1] + 1, 3)).astype(np.uint8),
+                              device=dev)
+        rgb = big[:-1, :-1].contiguous() if layout == "fast" else big[1:, 1:]
+        args = (rgb[..., 0], rgb[..., 1], rgb[..., 2])
+        assert FF.interleaved(*args) == (layout == "fast")
+        return lambda: ops.feature_fused(*args), lambda: ref.feature_fused_ref(*args)
+    pitch = -(-(hw[1] + 1) // 4) * 4  # rows of 16-byte multiples
+    gray = torch.as_tensor(rng.uniform(0, 255, (hw[0], pitch)).astype(np.float32), device=dev)
+    gray = gray[:, :hw[1]] if layout == "fast" else gray[:, 1:hw[1] + 1]  # or 4 bytes in
+    assert SS.rows_aligned(gray) == (layout == "fast")
+    return lambda: ops.sobel_stats(gray), lambda: ref.sobel_stats_ref(gray)
+
+
+def _check_stencil(got, want):
+    """The tolerances of the kernel tests above: planes rtol 3e-5, atol
+    1e-4 (sobel_stats' mag bit for bit), moments rtol 1e-4."""
+    for gp, wp in zip(got[:-1], want[:-1]):
+        if len(got) == 2:
+            torch.testing.assert_close(gp, wp, rtol=0.0, atol=0.0)
+        else:
+            torch.testing.assert_close(gp, wp, rtol=3e-5, atol=1e-4)
+    torch.testing.assert_close(got[-1], want[-1], rtol=1e-4, atol=0.0)
+
+
+@pytest.mark.parametrize("layout", ["fast", "generic"])
+@pytest.mark.parametrize("kernel", ["feature_fused", "sobel_stats"])
+def test_cuda_stencil_one_device_launch_per_call(kernel, layout):
+    """The blocks' moments merge inside the one launch: the profiler sees
+    a single device kernel per call (the workspace is made once)."""
+    dev = _cuda()
+    call, _ = _stencil_case(kernel, dev, layout=layout)
+    call()  # builds the kernel, makes the workspace
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    names = _device_kernel_names(call)
+    assert ops.launch_counts()[kernel] == 9
+    assert len(names) == 3 and all(f"{kernel}_kernel<" in n for n in names), names
+
+
+@pytest.mark.parametrize("layout", ["fast", "generic"])
+@pytest.mark.parametrize("kernel", ["feature_fused", "sobel_stats"])
+def test_cuda_stencil_back_to_back_calls_are_bit_equal(kernel, layout):
+    """The partial rows merge in block order, whichever block arrives
+    last: repeated calls give the same bits."""
+    dev = _cuda()
+    call, plain = _stencil_case(kernel, dev, layout=layout)
+    first = call()
+    for _ in range(5):
+        again = call()
+        for a, b in zip(again, first):
+            assert torch.equal(a, b)
+    _check_stencil(first, plain())
+
+
+@pytest.mark.parametrize("kernel", ["feature_fused", "sobel_stats"])
+def test_cuda_stencil_alternating_shapes_on_one_stream(kernel):
+    """Calls of different shapes share the stream's workspace: each
+    launch leaves its counter 0 for the next, and the 4096x4096 call
+    grows the partials."""
+    dev = _cuda()
+    cases = [_stencil_case(kernel, dev, hw, layout, seed)
+             for hw, layout, seed in (((130, 257), "generic", 1), ((4096, 4096), "fast", 2),
+                                      ((3, 304), "fast", 3), ((1, 300), "generic", 4),
+                                      ((1000, 1500), "generic", 5))]
+    firsts = [call() for call, _ in cases]
+    for (_, plain), first in zip(cases, firsts):
+        _check_stencil(first, plain())
+    for _ in range(2):
+        for (call, _), first in zip(cases, firsts):
+            for a, b in zip(call(), first):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kernel", ["feature_fused", "sobel_stats"])
+def test_cuda_stencil_call_is_captured_in_a_cuda_graph(kernel):
+    """The wrapper allocates its outputs, launches once and waits on
+    nothing, so a call can be captured in a CUDA graph; replays give the
+    eager call's bits."""
+    dev = _cuda()
+    call, plain = _stencil_case(kernel, dev, (1000, 1504), "fast")
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        eager = call()  # builds, makes the side stream's workspace
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = call()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(captured, eager):
+            assert torch.equal(a, b)
+    _check_stencil(captured, plain())
+
+
 def _qkv(shape_q, shape_kv, dtype, dev, rng):
     mk = lambda s: torch.as_tensor(rng.normal(0, 1, s).astype(np.float32),  # noqa: E731
                                    device=dev).to(dtype)
@@ -336,20 +491,13 @@ def _decode_case(dev, dtype=torch.bfloat16):
 def test_cuda_decode_attention_one_device_launch_per_call():
     """The splits are combined inside the one launch: the profiler sees
     a single device kernel per call (the workspace is made once)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     dev = _cuda()
     q, k, v, lens = _decode_case(dev)
     ops.decode_attention(q, k, v, lens)  # builds the kernel, makes the workspace
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            ops.decode_attention(q, k, v, lens)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    assert ops.launch_counts()["decode_attention"] == 3
+    names = _device_kernel_names(lambda: ops.decode_attention(q, k, v, lens))
+    assert ops.launch_counts()["decode_attention"] == 9
     assert len(names) == 3 and all(re.search(r"decode_(tc_)?kernel<", n) for n in names), names
 
 
