@@ -47,6 +47,22 @@ every stage completed on the ``gpu`` lane, the kernels' launch counts
 reconstruction (the scheduler's count of the four ops that run one),
 and both runs agree per tile.
 
+Phase 6 (run right after phase 2), the main path across OS processes:
+the Manager in this process behind a ``ManagerEndpoint`` on a
+``SocketBus``, two worker processes from ``spawn_worker``, each with one
+``gpu`` lane on the card (``wsi_registry_cuda``, PATS, locality),
+Manager window 2, locality-aware leases and predictive push, on the
+first 4 of phase 2's tiles with ``build_workflow(fused=True)``. Region
+values cross the wire as tensors through the port's codec, CRC-sealed on
+the data plane. Checks both workers registered and ran stages, every
+stage completed, every op ran on a ``gpu`` lane, no CRC rejects
+(pulls and pushes), ``n_objects`` and every ``feat_*`` per tile equal to
+phase 2's fused run (rtol 1e-3, atol 1e-4), morph_recon and
+feature_fused launched in the workers (each writes its counts on exit,
+``$REPRO_TORCH_LAUNCH_LOG``) and none here, and both children exit 0.
+Prints seconds and tiles/s beside phase 2's, the codec's bytes, the
+relay's bytes, each worker's transport counters and peak RSS.
+
 Phase 3: one 256x256 tile through ``run_tile`` on the card and through
 the numpy path, at the bars of the reference's ``tests/test_app.py``.
 
@@ -911,6 +927,158 @@ def device_busy(tile, unprofiled_s: float) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 6: the main path across OS processes
+# --------------------------------------------------------------------------
+
+MP_TILES, MP_WORKERS = 4, 2
+#: A features completion of one 4096x4096 tile carries every op's state
+#: dict, about 3.8 GB on the wire (2.4 GB for segmentation); the
+#: default 10 s would time the call out and re-send it.
+MP_RPC_TIMEOUT = 300.0
+FEAT_KEYS = ("feat_pixel", "feat_gradient", "feat_haralick", "feat_canny", "feat_morph")
+
+
+def _peak_rss(who) -> int:
+    import resource
+
+    return resource.getrusage(who).ru_maxrss * 1024  # KiB on Linux
+
+
+def phase_processes(tiles, want: dict) -> dict:
+    """The fused workflow on ``tiles`` through a Manager here and
+    ``MP_WORKERS`` spawned worker processes on the card; ``want``:
+    phase 2's fused features per tile."""
+    import os
+    import resource
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import repro_torch.transport as T
+    from repro_torch.app import build_workflow
+    from repro_torch.app.pipeline import LAUNCH_LOG_ENV
+    from repro_torch.core import ConcreteWorkflow, DataChunk, Manager, ManagerConfig
+    from repro_torch.kernels import ops as K
+
+    launch_dir = ROOT / "build" / "phase6_launches"
+    shutil.rmtree(launch_dir, ignore_errors=True)
+    launch_dir.mkdir(parents=True)
+    os.environ[LAUNCH_LOG_ENV] = str(launch_dir)
+    gc.collect()
+    torch.cuda.empty_cache()  # phase 2's cached blocks: the workers need the card
+    rss_before = _peak_rss(resource.RUSAGE_SELF)
+    cw = ConcreteWorkflow.replicate(
+        build_workflow(fused=True),
+        [DataChunk(i, payload=t) for i, t in enumerate(tiles)],
+    )
+    mgr = Manager(cw, ManagerConfig(
+        window=2, heartbeat_timeout=60, locality_aware=True, predictive_push=True,
+        backup_tasks=False, rpc_timeout=MP_RPC_TIMEOUT))
+    endpoint = T.ManagerEndpoint(mgr, T.SocketBus())
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    procs = [
+        T.spawn_worker(endpoint.address, T.WorkerSpec(
+            worker_id=wid, registry="repro_torch.app.pipeline:wsi_registry_cuda",
+            lanes=(("gpu", 0),), policy="pats", extra={"locality": True}))
+        for wid in range(MP_WORKERS)
+    ]
+    try:
+        check(endpoint.wait_workers(MP_WORKERS, timeout=300.0),
+              f"phase 6: {len(endpoint.proxies)} of {MP_WORKERS} workers registered")
+        startup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ok = mgr.run(timeout=900.0)
+        seconds = time.perf_counter() - t0
+        check(ok, "phase 6: Manager.run did not finish")
+        done, total = mgr.progress()
+        check(done == total == 2 * len(tiles), f"phase 6: {done}/{total} stages")
+        stats = {wid: proxy.stats() for wid, proxy in sorted(endpoint.proxies.items())}
+        feats: dict[int, dict] = {}
+        for si in cw.stage_instances.values():
+            if si.stage.name == "features":
+                for state in (mgr.stage_outputs(si.uid) or {}).values():
+                    feats.setdefault(si.chunk.chunk_id, {}).update(
+                        {k: v for k, v in state.items()
+                         if k.startswith("feat_") or k == "n_objects"})
+        wire = dict(encoded_bytes=int(endpoint.bus.codec.encoded_bytes),
+                    decoded_bytes=int(endpoint.bus.codec.decoded_bytes),
+                    relay_bytes=int(endpoint.relay_bytes),
+                    relay_regions=int(mgr.relay_regions),
+                    push_directives=int(mgr.push_directives))
+        del mgr, cw
+    finally:
+        endpoint.close()
+        for proc in procs:
+            proc.join(timeout=60.0)
+        codes = [proc.exitcode for proc in procs]
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(timeout=10.0)
+        os.environ.pop(LAUNCH_LOG_ENV, None)
+    check(codes == [0] * MP_WORKERS, f"phase 6: worker exit codes {codes}")
+    check(sum(K.launch_counts().values()) == 0, "phase 6: kernels launched in the Manager")
+    logs = sorted(launch_dir.glob("launches-*.json"))
+    check(len(logs) == MP_WORKERS, f"phase 6: {len(logs)} launch logs")
+    per_worker = [json.loads(f.read_text()) for f in logs]
+    launches = {k: sum(c[k] for c in per_worker) for k in per_worker[0]}
+    check(launches["morph_recon"] > 0 and launches["feature_fused"] > 0,
+          f"phase 6: kernels not launched in the workers: {launches}")
+    check(sorted(stats) == list(range(MP_WORKERS)), f"phase 6: workers {sorted(stats)}")
+    for wid, st in stats.items():
+        check(st["executed"] > 0, f"phase 6: worker {wid} ran no op")
+        off_lane = {op: k for op, k in st["profile"].items() if set(k) != {"gpu"}}
+        check(not off_lane, f"phase 6: worker {wid} ops off the gpu lane: {off_lane}")
+        tr = st["transport"]
+        check(tr["crc_rejects"] == 0 and tr["push_crc_rejects"] == 0,
+              f"phase 6: worker {wid} CRC rejects {tr}")
+    check(sorted(feats) == list(range(len(tiles))), f"phase 6: tiles {sorted(feats)}")
+    for cid, got in feats.items():
+        check(got["n_objects"] == want[cid]["n_objects"],
+              f"phase 6: tile {cid} n_objects {got['n_objects']} != {want[cid]['n_objects']}")
+        for key in FEAT_KEYS:
+            np.testing.assert_allclose(got[key], want[cid][key], rtol=1e-3, atol=1e-4,
+                                       err_msg=f"phase 6: tile {cid} {key}")
+    return dict(
+        tiles=len(tiles), seconds=seconds, tiles_per_s=len(tiles) / seconds,
+        startup_s=startup_s, wire=wire, launches=launches,
+        launches_per_worker=per_worker,
+        transport={wid: st["transport"] for wid, st in stats.items()},
+        executed={wid: st["executed"] for wid, st in stats.items()},
+        lane_busy={wid: st["lane_busy"] for wid, st in stats.items()},
+        prefetch={wid: st.get("prefetch", {}) for wid, st in stats.items()},
+        push_ingested={wid: st["push_ingested"] for wid, st in stats.items()},
+        manager_peak_rss_before=rss_before,
+        manager_peak_rss=_peak_rss(resource.RUSAGE_SELF),
+        children_peak_rss=_peak_rss(resource.RUSAGE_CHILDREN),
+    )
+
+
+def log_processes(res: dict, phase2: dict) -> None:
+    gib = 2 ** 30
+    log(f"  {res['tiles']} tiles in {res['seconds']:.2f} s across {MP_WORKERS} worker "
+        f"processes: {res['tiles_per_s']:.4f} tiles/s (phase 2 in process, fused, "
+        f"8 tiles: {phase2['tiles_per_s']:.4f} tiles/s); workers up in "
+        f"{res['startup_s']:.2f} s")
+    w = res["wire"]
+    log(f"  Manager codec: encoded {w['encoded_bytes']} B, decoded {w['decoded_bytes']} B "
+        f"({w['decoded_bytes'] / res['tiles'] / gib:.3f} GiB per tile); relay "
+        f"{w['relay_bytes']} B in {w['relay_regions']} regions; "
+        f"{w['push_directives']} push directives")
+    for wid in sorted(res["transport"]):
+        log(f"  worker {wid}: executed {res['executed'][wid]} ops, lane busy "
+            f"{res['lane_busy'][wid]}, push ingested {res['push_ingested'][wid]}, "
+            f"transport {json.dumps(res['transport'][wid])}, "
+            f"prefetch {json.dumps(res['prefetch'][wid])}")
+    log(f"  Manager peak RSS {res['manager_peak_rss'] / gib:.2f} GiB "
+        f"({res['manager_peak_rss_before'] / gib:.2f} GiB before phase 6); largest "
+        f"child's peak RSS {res['children_peak_rss'] / gib:.2f} GiB")
+    log(f"  kernel launches in the workers: {json.dumps(res['launches_per_worker'])}")
+
+
+# --------------------------------------------------------------------------
 # phase 3: one small tile, card vs numpy
 # --------------------------------------------------------------------------
 
@@ -1228,6 +1396,10 @@ def main() -> int:
     phase1_counts = K.launch_counts()
     log(f"phase 2: main path, {N_TILES} tiles of {TILE}x{TILE}, one gpu lane")
     runs = phase_main_path(tiles)
+    log(f"phase 6: main path across processes, {MP_TILES} tiles of {TILE}x{TILE}, "
+        f"{MP_WORKERS} worker processes with one gpu lane each, SocketBus")
+    procs = phase_processes(tiles[:MP_TILES], runs[True]["feats"])
+    log_processes(procs, runs[True])
     log("phase 3: 256x256 tile, card vs numpy")
     phase_parity()
     del tiles

@@ -24,6 +24,16 @@ Host/device boundary
   Worker times each call on the host clock (``lane.busy_seconds``, the
   PATS runtime estimate), which would otherwise see only the enqueue.
 
+Spawned workers
+---------------
+A worker process (``transport.spawn_worker``) rebuilds its registry from
+a ``"module:attr"`` path to a zero-argument factory:
+``repro_torch.app.pipeline:wsi_registry_cuda`` (the card) or
+``:wsi_registry_cpu`` (the ``gpu`` variants on the CPU). Kernel launch
+counts live in the process that launches; with ``$REPRO_TORCH_LAUNCH_LOG``
+naming a directory, a worker built by either factory writes its counts
+there as ``launches-<pid>.json`` when it exits.
+
 Fused-variant substitution rule: ``build_workflow(fused=True)``
 replaces ``color_deconv -> {pixel_stats, gradient_stats}`` by the single
 ``feature_fused`` op (one read of the tile instead of three); see the
@@ -32,6 +42,10 @@ JAX package's ``app/pipeline.py`` for when that pays.
 
 from __future__ import annotations
 
+import atexit
+import json
+import os
+from pathlib import Path
 from typing import Any
 
 import numpy as np
@@ -51,7 +65,10 @@ from . import features as F
 from . import segmentation as S
 from ._device import resolve_device, to_device, to_host
 
-__all__ = ["build_workflow", "register_variants", "run_tile", "OP_IMPLS"]
+__all__ = [
+    "build_workflow", "register_variants", "run_tile", "OP_IMPLS",
+    "wsi_registry_cuda", "wsi_registry_cpu", "LAUNCH_LOG_ENV",
+]
 
 #: op name -> (cpu impl, accel impl) over the pipeline state dict; the
 #: accel impls take ``device=`` (default: the card).
@@ -196,6 +213,36 @@ def register_variants(
         transfer_impact=fp.transfer_impact,
         batchable=fp.batchable,
     )
+    return reg
+
+
+#: Environment variable naming the directory where a worker process
+#: built by a registry factory below writes its kernel launch counts.
+LAUNCH_LOG_ENV = "REPRO_TORCH_LAUNCH_LOG"
+
+
+def _log_launches_at_exit() -> None:
+    out = os.environ.get(LAUNCH_LOG_ENV)
+    if not out:
+        return
+    path = Path(out) / f"launches-{os.getpid()}.json"
+    K.reset_launch_counts()
+    atexit.register(lambda: path.write_text(json.dumps(K.launch_counts())))
+
+
+def wsi_registry_cuda() -> VariantRegistry:
+    """Zero-argument registry factory for a spawned worker: the WSI
+    variants, ``gpu`` on the card (raises without one)."""
+    reg = register_variants(VariantRegistry(), device="cuda")
+    _log_launches_at_exit()
+    return reg
+
+
+def wsi_registry_cpu() -> VariantRegistry:
+    """As :func:`wsi_registry_cuda`, with the ``gpu`` variants on the
+    CPU (the kernels' plain versions): the spawned-worker tests."""
+    reg = register_variants(VariantRegistry(), device="cpu")
+    _log_launches_at_exit()
     return reg
 
 

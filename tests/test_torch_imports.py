@@ -24,7 +24,8 @@ COPIED = [
                                "scheduling", "worker", "manager")),
     *(f"staging/{p.name}" for p in sorted((REF / "staging").glob("*.py"))),
     *(f"telemetry/{m}.py" for m in ("metrics", "tracing", "export", "recorder")),
-    "transport/bus.py",
+    *(f"transport/{m}.py" for m in ("bus", "inproc", "socketbus", "endpoint")),
+    *(f"serving/{p.name}" for p in sorted((REF / "serving").glob("*.py"))),
     "app/tiles.py",
     "models/config.py",
     *(f"configs/{p.name}" for p in sorted((REF / "configs").glob("*.py"))
@@ -53,6 +54,8 @@ def test_import_with_jax_blocked():
         "sys.modules['jax'] = None\n"
         "import repro_torch, repro_torch.app, repro_torch.core, repro_torch.staging\n"
         "import repro_torch.telemetry, repro_torch.transport\n"
+        "import repro_torch.faults, repro_torch.serving, repro_torch.transport.endpoint\n"
+        "import repro_torch.transport.demo, repro_torch.app.pipeline\n"
         "import repro_torch.kernels.ops, repro_torch.kernels._build\n"
         "import repro_torch.models, repro_torch.configs, repro_torch.train\n"
         "import repro_torch.launch.serve, repro_torch.launch.costs_h100\n"
@@ -80,6 +83,7 @@ def test_card_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     from repro_torch.app import register_variants, run_tile, synth_tile
+    from repro_torch.app.pipeline import wsi_registry_cuda
     from repro_torch.app.segmentation import rbc_detection_accel
     from repro_torch.core import VariantRegistry
 
@@ -87,6 +91,8 @@ def test_card_entry_points_raise_without_a_card():
         register_variants(VariantRegistry())
     with pytest.raises(RuntimeError, match="cuda"):
         register_variants(VariantRegistry(), device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        wsi_registry_cuda()  # a spawned worker's factory: no CPU fallback
     tile = synth_tile(0, size=32, seed=0)
     with pytest.raises(RuntimeError, match="cuda"):
         run_tile(tile, "accel")
