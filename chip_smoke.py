@@ -83,6 +83,30 @@ within 2e-2 (the whole bfloat16 model's error is printed, not checked:
 one-ulp rounding differences between the devices spread through the
 later layers beyond 2e-2).
 
+Phase 1 also holds the two backward kernels of the training path to
+their plain backward versions: flash_attention at the training shape
+(B=4, H=32, S=1024, D=64, bf16, causal), a ragged S=1000, float32 and
+GQA (H=32, Hkv=8, D=128); mamba2_chunk_scan at C=8, H=4*64, F=64*64,
+float32. A repeated call must give the same bits; times as above, with
+SDPA's backward beside flash's.
+
+Phase 7, the training path: ``run_training`` trains zamba2-1.2B at full
+width and depth (batch 4, seq 1023: 1024 tokens per row, 24 steps) from
+seeded weights. Checks every loss finite, the last below the first, and
+the flash and scan kernels launched forward and backward (counts zeroed
+just before); prints step seconds (median after step 2), training
+tokens/s and peak memory. Then a fresh model: every parameter's
+gradient after one step finite and not all zero, and a profiled step
+(device busy share, device time by kernel and op). Phase 7b: one train
+step of the model cut to 8 layers in float32 (batch 1, 256 tokens), on
+the card and on the CPU from the same weights: loss within 1e-4
+relative, each gradient within 2e-3 of its norm, each updated
+parameter within 1e-6 plus what the gradients' difference can move
+AdamW's first step (see ``phase_train_card_vs_cpu``). Phase 7c: smoke zamba2
+trained to a checkpoint under ``build/`` and resumed: the restored
+state equal to the saved one, the resumed run ending at step 20 after
+at most 12 chunks; the directory is removed.
+
 Any failed check exits non-zero. The last lines are a JSON ``kernels``
 record and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -111,13 +135,26 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:93",
     "decode_attention": "src/repro/kernels/decode_attention.py:85",
     "mamba2_chunk_scan": "src/repro/kernels/mamba2_scan.py:56",
+    # The backward kernels have no TPU counterpart (the JAX package
+    # differentiates plain jnp): they name the forward's TPU kernel.
+    "flash_attention_bwd": "src/repro/kernels/flash_attention.py:93",
+    "mamba2_chunk_scan_bwd": "src/repro/kernels/mamba2_scan.py:56",
 }
-SOURCES = {"mamba2_chunk_scan": "mamba2_scan"}
+SOURCES = {"mamba2_chunk_scan": "mamba2_scan", "mamba2_chunk_scan_bwd": "mamba2_scan",
+           "flash_attention_bwd": "flash_attention"}
 PATHS = {"color_deconv": "wsi", "morph_recon": "wsi", "feature_fused": "wsi",
          "sobel_stats": None, "flash_attention": "serving",
-         "decode_attention": "serving", "mamba2_chunk_scan": "serving"}
+         "decode_attention": "serving", "mamba2_chunk_scan": "serving",
+         "flash_attention_bwd": "training", "mamba2_chunk_scan_bwd": "training"}
 SERVE = dict(arch="zamba2_1p2b", smoke=False, n_requests=8, batch_size=4,
              prompt_len=1024, max_new=32, max_len=2048)
+#: Phase 7: the loader yields seq + 1 = 1024 tokens per row, a multiple of
+#: the chunked SSD's 128.
+TRAIN = dict(arch="zamba2_1p2b", batch=4, seq=1023, steps=24, seed=0)
+#: Phase 7b: at most this share of all elements may take the sign-flip
+#: allowance, and no flipped element's gradient may exceed this share of
+#: its tensor's norm: a flip is float32 noise around a gradient near 0.
+FLIP_SHARE, FLIP_GRAD = 1e-5, 1e-7
 N_TILES, TILE, POOL_TILE = 8, 4096, 1024
 #: The ops that run one ``ops.morph_recon`` reconstruction each, per tile.
 RECON_OPS = ("recon_to_nuclei", "fill_holes", "pre_watershed", "canny_edge")
@@ -218,23 +255,30 @@ def hmma_counts(lib: Path) -> dict:
 
 def flash_build_report(ptxas: dict) -> dict:
     """Registers, spills and tensor-core instruction count of the
-    bfloat16 flash_attention kernel for each head dim. Fails on a spill
-    or on a kernel with no tensor-core instruction."""
+    bfloat16 flash_attention forward kernel for each head dim, in its
+    serving instantiation (``d32`` ...: no log-sum-exp store) and its
+    training one (``d32_lse`` ...); registers and spills of the backward
+    kernels (``bwd``). Fails on a spill of a forward kernel or on one
+    with no tensor-core instruction."""
     from repro_torch.kernels import _build
 
     entries = ptxas_entries(ptxas["flash_attention"])
     sass = hmma_counts(_build._target("flash_attention"))
     report = {}
     for d in (32, 64, 128):
-        key = f"flash_bf16_kernelILi{d}E"
-        found = [v for n, v in entries.items() if key in n]
-        mma = [c for n, c in sass.items() if key in n]
-        check(len(found) == 1 and len(mma) == 1,
-              f"bf16 flash kernel D={d}: {len(found)} ptxas entries, {len(mma)} SASS functions")
-        report[f"d{d}"] = dict(found[0], hmma=mma[0])
-        check(mma[0] > 0, f"bf16 flash kernel D={d} has no HMMA/HGMMA instruction")
-        check(found[0].get("spill_stores") == 0 and found[0].get("spill_loads") == 0,
-              f"bf16 flash kernel D={d} spills: {found[0]}")
+        for lse, suffix in ((0, ""), (1, "_lse")):
+            key = re.compile(rf"flash_bf16_kernelILi{d}ELi\d+ELb{lse}E")
+            found = [v for n, v in entries.items() if key.search(n)]
+            mma = [c for n, c in sass.items() if key.search(n)]
+            what = f"bf16 flash kernel D={d}{suffix}"
+            check(len(found) == 1 and len(mma) == 1,
+                  f"{what}: {len(found)} ptxas entries, {len(mma)} SASS functions")
+            report[f"d{d}{suffix}"] = dict(found[0], hmma=mma[0])
+            check(mma[0] > 0, f"{what} has no HMMA/HGMMA instruction")
+            check(found[0].get("spill_stores") == 0 and found[0].get("spill_loads") == 0,
+                  f"{what} spills: {found[0]}")
+    report["bwd"] = {re.search(r"(flash_bwd_\w+?_kernel)I(\w+?)(Li\d+E)?E", n).expand(
+        r"\1<\2\3>"): v for n, v in entries.items() if "flash_bwd_" in n}
     report["hmma_in_library"] = sum(sass.values())
     return report
 
@@ -273,6 +317,25 @@ def max_err(got, want, rtol: float, atol: float, what: str) -> float:
     bad = ~same & ~(err <= atol + rtol * w.abs())
     check(not bool(bad.any()), f"{what}: {int(bad.sum())} elements beyond "
           f"rtol={rtol} atol={atol} (max abs err {float(err.max())})")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def row_err(got, want, frac: float, peak: float, what: str) -> float:
+    """Max abs err of ``got`` against ``want``, rtol 0: each element is
+    held to ``frac`` of the largest |value| in its row (the last dim) of
+    ``want``, and no row's bar drops below ``frac * 2**-8 * peak``
+    (rows that are all near 0, such as causal dQ's row 0). Fails on any
+    non-finite value on either side."""
+    g, w = got.float(), want.float()
+    check(bool(g.isfinite().all()) and bool(w.isfinite().all()),
+          f"{what}: non-finite values (kernel {int((~g.isfinite()).sum())}, "
+          f"plain {int((~w.isfinite()).sum())})")
+    scale = w.abs().amax(-1, keepdim=True).clamp_min(2.0 ** -8 * peak)
+    err = (g - w).abs()
+    over = err / (frac * scale)
+    check(not bool((over > 1).any()), f"{what}: {int((over > 1).sum())} elements beyond "
+          f"{frac:.3g} of their row's largest value (max abs err {float(err.max())}, "
+          f"worst {float(over.max()):.3g} of its bar)")
     return float(err.max()) if err.numel() else 0.0
 
 
@@ -1102,6 +1165,381 @@ def phase_parity() -> None:
     log(f"  256x256: n_objects={s_cpu['n_objects']} mask agreement={agree:.6f}")
 
 
+def phase_backward_kernels() -> dict:
+    """The two backward kernels of the training path against their plain
+    backward versions on the card: flash_attention at the training shape
+    (B=4, H=32, S=1024, D=64, bf16, causal), a ragged S=1000, float32,
+    and GQA (H=32, Hkv=8, D=128); mamba2_chunk_scan at C=8, H=4*64,
+    F=64*64, float32. Each must give the same bits on a repeated call;
+    timed with CUDA events (median, L2 flushed) beside the bound, the
+    plain version and, for attention, SDPA's backward on the same
+    inputs."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import mamba2_scan as MS
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda", 0)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev).zero_
+    rng = np.random.default_rng(47)
+    gpu = lambda a, dt=torch.float32: torch.as_tensor(a, device=dev).to(dt)  # noqa: E731
+    normal = lambda *shape: rng.normal(0, 1, shape).astype(np.float32)  # noqa: E731
+    # Forward (the lse instantiation): out at the serving forward's bars;
+    # lse within 2**-8 in bfloat16 (its row sum adds P rounded to
+    # bfloat16, each term within 2**-9), 2e-5 in float32.
+    fwd_tol = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (2e-5, 2e-5)}
+    lse_tol = {torch.bfloat16: (0.0, 2.0 ** -8), torch.float32: (2e-5, 2e-5)}
+    # Backward against the plain backward on the same q, k, v, out, lse and
+    # dout, rtol 0: each element within ``frac`` of the largest |value| in
+    # its row. Both sides sum in float32 and round once: bfloat16 elements
+    # may be one ulp (at most 2**-7 of the row's largest) apart, and the
+    # bar is two; float32 differs by summation order only. float32 is
+    # also held end to end, against the plain backward of the plain
+    # forward's out and lse; in bfloat16 that would measure the forward's
+    # rounding of out (one ulp of out moves Dvec = rowsum(dO * O), and so
+    # a whole row of dS), not the backward.
+    fracs = {torch.bfloat16: 2.0 ** -6, torch.float32: 2.0 ** -12}
+    results = {}
+
+    def flash_case(b, h, hkv, s, d, dt, what):
+        q = gpu(normal(b, h, s, d), dt)
+        k, v = (gpu(normal(b, hkv, s, d), dt) for _ in range(2))
+        dout = gpu(normal(b, h, s, d), dt)
+        out, lse = FA.flash_attention_cuda(q, k, v, True, return_lse=True)
+        want_out, want_lse = ref.flash_attention_fwd_ref(q, k, v, True)
+        fwd_err = max_err(out, want_out, *fwd_tol[dt], f"flash_attention forward {what} out")
+        lse_err = max_err(lse, want_lse, *lse_tol[dt], f"flash_attention forward {what} lse")
+        args = (q, k, v, out, lse, dout, True)
+        got = FA.flash_attention_bwd_cuda(*args)
+        again = FA.flash_attention_bwd_cuda(*args)
+        check(all(torch.equal(a, b_) for a, b_ in zip(got, again)),
+              f"flash_attention backward {what}: a repeated call differs")
+        wants = {"": ref.flash_attention_bwd_ref(*args)}
+        if dt == torch.float32:
+            wants[" end to end"] = ref.flash_attention_bwd_ref(q, k, v, want_out, want_lse,
+                                                               dout, True)
+        del want_out, want_lse
+        errs, note = {}, []
+        for tag, want in wants.items():
+            peak = max(float(w.abs().max()) for w in want)
+            for n, g, w in zip(("dq", "dk", "dv"), got, want):
+                errs[n + tag] = row_err(g, w, fracs[dt], peak,
+                                        f"flash_attention backward {what} {n}{tag}")
+                if not tag:
+                    check(bool(g.any()), f"flash_attention backward {what}: {n} all zero")
+                    note.append(f"{n} largest {float(w.abs().max()):.3g}, "
+                                f"{float((g != w).float().mean()):.3g} of elements differ")
+        err = max(v for n, v in errs.items() if n in ("dq", "dk", "dv"))
+        log(f"  flash_attention backward {what} B={b} H={h} Hkv={hkv} S={s} D={d} {dt}: "
+            f"max abs err {err:.3g} (forward out {fwd_err:.3g}, lse {lse_err:.3g}"
+            + (f", end to end {max(errs.values()):.3g}" if dt == torch.float32 else "")
+            + f"); {', '.join(note)}; bit-equal on repeat")
+        return err, args
+
+    flash_case(2, 8, 2, 1000, 64, torch.bfloat16, "ragged")
+    flash_case(2, 8, 8, 1000, 64, torch.float32, "float32")
+    err_gqa, args = flash_case(1, 32, 8, 1024, 128, torch.bfloat16, "GQA")
+    b, h, hkv, s, d = 1, 32, 8, 1024, 128
+    gqa = dict(shape=[b, h, hkv, s, d], max_abs_err=err_gqa,
+               ms=time_ms(lambda: FA.flash_attention_bwd_cuda(*args), 10, flush),
+               plain_ms=time_ms(lambda: ref.flash_attention_bwd_ref(*args), 3, flush))
+    del args
+    b, h, s, d = 4, 32, 1024, 64
+    err, args = flash_case(b, h, h, s, d, torch.bfloat16, "training shape")
+    q, k, v, out, lse, dout, _ = args
+    # SDPA's backward on the same inputs: the yardstick, unused by the port.
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), dout,  # noqa: E731
+                                           retain_graph=True)
+    sdpa_err = [float((g.float() - w.float()).abs().max()) for g, w in
+                zip(sdpa_bwd(), ref.flash_attention_bwd_ref(*args))]
+    log(f"  sdpa backward (yardstick, not checked): max abs err against the plain "
+        f"backward dq, dk, dv {[float(f'{e:.3g}') for e in sdpa_err]}")
+    elems, tri = b * h * s * d, b * h * s * (s + 1) / 2
+    nbytes = 2 * (3 * elems + 2 * elems) + 4 * b * h * s + 2 * 3 * elems
+    bms, by = bound(nbytes, 5 * 2.0 * tri * d, BF16_FLOPS)
+    results["flash_attention_bwd"] = dict(
+        shape=[b, h, h, s, d], max_abs_err=err, kernels_per_call=FA.BWD_KERNELS,
+        ms=time_ms(lambda: FA.flash_attention_bwd_cuda(*args), 10, flush),
+        plain_ms=time_ms(lambda: ref.flash_attention_bwd_ref(*args), 3, flush),
+        bound_ms=bms, bound_by=by, library_ms=time_ms(sdpa_bwd, 10, flush),
+        gqa_d128=gqa)
+    del args, q, k, v, out, lse, dout, qs, ks, vs, sdpa_out
+
+    c, h, f = 8, 4 * 64, 64 * 64
+    decay = gpu(rng.uniform(0.3, 1.0, (c, h)).astype(np.float32))
+    states, _ = MS.mamba2_chunk_scan_cuda(decay, gpu(normal(c, h, f)))
+    g_states, g_final = gpu(normal(c, h, f)), gpu(normal(h, f))
+    args = (decay, states, g_states, g_final)
+    got, again = MS.mamba2_chunk_scan_bwd_cuda(*args), MS.mamba2_chunk_scan_bwd_cuda(*args)
+    check(all(torch.equal(a, b_) for a, b_ in zip(got, again)),
+          "mamba2_chunk_scan backward: a repeated call differs")
+    check(all(bool(t.isfinite().all()) and bool(t.any()) for t in got),
+          "mamba2_chunk_scan backward: a non-finite or all-zero gradient")
+    want = ref.mamba2_chunk_scan_bwd_ref(*args)
+    # g_inc: the same rounded multiply, then add; g_decay: a sum over F in
+    # another order.
+    err = max(max_err(got[1], want[1], 0.0, 0.0, "mamba2_chunk_scan backward g_inc"),
+              max_err(got[0], want[0], 1e-4, 1e-3, "mamba2_chunk_scan backward g_decay"))
+    bms, by = bound(4 * (c * h + 3 * c * h * f + h * f + c * h), 4.0 * c * h * f)
+    results["mamba2_chunk_scan_bwd"] = dict(
+        max_abs_err=err, ms=time_ms(lambda: MS.mamba2_chunk_scan_bwd_cuda(*args), 50, flush),
+        plain_ms=time_ms(lambda: ref.mamba2_chunk_scan_bwd_ref(*args), 10, flush),
+        bound_ms=bms, bound_by=by, library_ms=None)
+    for name, res in results.items():
+        log(f"  {name}: " + ", ".join(
+            f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}" for k, v in res.items()))
+    return results
+
+
+# --------------------------------------------------------------------------
+# phase 7: training zamba2-1.2B at full width; 7b: card against CPU; 7c: resume
+# --------------------------------------------------------------------------
+
+
+def training_profile(steps: int = 2) -> dict:
+    """A fresh full-width model: every parameter's gradient after one
+    step finite and not all zero (the autograd path is connected), then
+    ``steps`` timed steps and one profiled step: device busy share
+    against the unprofiled step's wall time, device time by kernel and by
+    PyTorch op, and the port's kernels' device time."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenChunkSource
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.train import TrainState, loss_and_grads, make_train_step
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config(TRAIN["arch"])
+    model = build_model(cfg, device=dev, seed=TRAIN["seed"], trainable=True)
+    src = TokenChunkSource(cfg.vocab_size, TRAIN["seq"], TRAIN["batch"], seed=TRAIN["seed"])
+    batch = {"tokens": torch.as_tensor(src(0), device=dev).long()}
+    _, _, grads = loss_and_grads(model, batch)
+    bad = [n for n, g in grads.items() if not bool(torch.isfinite(g).all()) or not bool(g.any())]
+    check(not bad, f"phase 7: parameters with a non-finite or all-zero gradient: {bad[:8]}")
+    n_grads = len(grads)
+    del grads
+    opt = AdamW(lr=cosine_schedule(3e-4, warmup_steps=20, total_steps=TRAIN["steps"]))
+    params = dict(model.named_parameters())
+    state = TrainState(params, opt.init(params))
+    step = make_train_step(model, opt)
+    walls = []
+    run = {"state": state}
+
+    def one_step(i):
+        b = {"tokens": torch.as_tensor(src(1 + i), device=dev).long()}
+        run["state"], _ = step(run["state"], b)
+
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step(i)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    out = dict(parameters_with_gradient=n_grads, step_wall_s=walls,
+               **profiled(lambda: one_step(steps), walls[-1]))
+    del model, state, step, opt, params, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_training() -> dict:
+    """zamba2-1.2B at full width and depth through ``run_training``:
+    every logged loss finite, the last below the first, the flash and
+    scan kernels launched forward and backward (counts zeroed just
+    before); step seconds (median after step 2), tokens/s, peak memory;
+    then the gradient check and a profiled step (``training_profile``)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops as K
+    from repro_torch.launch.train import run_training
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    out = run_training(arch=TRAIN["arch"], smoke=False, batch=TRAIN["batch"],
+                       seq=TRAIN["seq"], steps=TRAIN["steps"], seed=TRAIN["seed"],
+                       log_every=1, device="cuda")
+    counts = K.launch_counts()
+    peak = int(torch.cuda.max_memory_allocated() - base_mem)
+    del out["state"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = [m["loss"] for m in out["metrics"]]
+    check(out["final_step"] == TRAIN["steps"], f"phase 7: {out['final_step']} steps")
+    check(bool(np.isfinite(losses).all()), f"phase 7: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"phase 7: loss did not fall: {losses[0]} -> {losses[-1]}")
+    for name in ("flash_attention", "flash_attention_bwd", "mamba2_chunk_scan",
+                 "mamba2_chunk_scan_bwd"):
+        check(counts[name] > 0, f"phase 7 launched no {name} kernel")
+    secs = [m["seconds"] for m in out["metrics"]]
+    step_s = [b - a for a, b in zip(secs, secs[1:])][1:]  # steps 3.. (after step 2)
+    med = statistics.median(step_s)
+    res = dict(losses=losses, step_s_median=med, step_s=step_s,
+               tokens_per_s=TRAIN["batch"] * TRAIN["seq"] / med,
+               run_tokens_per_s=out["metrics"][-1]["tps"], peak_mem_bytes=peak,
+               launches=counts)
+    log(f"  {TRAIN['steps']} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}; step "
+        f"{med:.4f} s (median after step 2), {res['tokens_per_s']:.1f} training tokens/s "
+        f"({res['run_tokens_per_s']:.1f} over the run), peak "
+        f"{peak / 2**30:.2f} GiB above the start; launches {counts}")
+    log(f"  losses {[round(x, 4) for x in losses]}")
+    res["profile"] = training_profile()
+    log("  profiled step: " + json.dumps(res["profile"]))
+    return res
+
+
+def phase_train_card_vs_cpu() -> dict:
+    """One ``make_train_step`` step of zamba2-1.2B at full width cut to 8
+    layers, float32, batch 1 x 256 tokens, from the same weights and
+    tokens on the card (kernels) and on the CPU (plain versions): loss
+    within 1e-4 relative; each gradient within 2e-3 of its tensor's
+    norm; each updated parameter within 1e-6 plus what the two
+    gradients' difference can move AdamW's first step. That step moves
+    an element by lr * g / (|g| + eps) (g clipped, held by the first
+    moment as (1 - b1) g): two gradients dg apart move it at most
+    lr * dg * eps / (min|g| + eps)^2 apart, or 2 lr where their signs
+    differ. So an element whose gradient is near eps = 1e-8 may move by
+    up to lr either way: a bar relative to the tensor's norm alone does
+    not hold there (a small tensor such as conv_b, which starts at zero,
+    can miss 2e-3 of its norm). The elements given the 2 lr allowance are
+    counted and held to ``FLIP_SHARE`` of all elements, each with a
+    gradient under ``FLIP_GRAD`` of its tensor's norm."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as K
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.train import loss_and_grads
+
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]), n_layers=8)
+    dev = torch.device("cuda", 0)
+    toks = torch.as_tensor(np.random.default_rng(6).integers(0, cfg.vocab_size, (1, 256)))
+    cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(6),
+                      trainable=True, act_dtype=torch.float32)
+    card = copy.deepcopy(cpu).to(dev)
+    opt = AdamW(lr=1e-3)
+    K.reset_launch_counts()
+    res = {}
+    for name, model, t in (("cpu", cpu, toks), ("card", card, toks.to(dev))):
+        t0 = time.perf_counter()
+        loss, _, grads = loss_and_grads(model, {"tokens": t})
+        params = dict(model.named_parameters())
+        old = {k: p.detach().cpu().clone() for k, p in params.items()}
+        kept = {k: g.cpu().clone() for k, g in grads.items()}
+        _, state = opt.update(grads, opt.init(params), params)
+        res[name] = dict(loss=float(loss), grads=kept, old=old,
+                         new={k: p.detach().cpu() for k, p in params.items()},
+                         g_used={k: (m / (1 - opt.b1)).cpu() for k, m in state.mu.items()},
+                         seconds=time.perf_counter() - t0)
+    counts = K.launch_counts()
+    for name in ("flash_attention", "flash_attention_bwd", "mamba2_chunk_scan",
+                 "mamba2_chunk_scan_bwd"):
+        check(counts[name] > 0, f"phase 7b launched no {name} kernel")
+    lc, lg = res["cpu"]["loss"], res["card"]["loss"]
+    c, g = res["cpu"], res["card"]
+    grad_rel, upd_over, flips, flip_g = {}, {}, {}, {}
+    for k, gw in c["grads"].items():
+        grad_rel[k] = float((g["grads"][k] - gw).abs().max()) / max(float(gw.norm()), 1e-12)
+        g1, g2 = g["g_used"][k].double(), c["g_used"][k].double()
+        drift = (g1 - g2).abs() * opt.eps / (torch.minimum(g1.abs(), g2.abs()) + opt.eps) ** 2
+        flip = g1.sign() != g2.sign()
+        bound = 1e-6 + opt.lr * torch.where(flip, torch.full_like(drift, 2.0), drift)
+        upd_over[k] = float(((g["new"][k] - c["new"][k]).abs().double() / bound).max())
+        # The elements given the sign-flip allowance, and the largest
+        # gradient among them as a share of its tensor's norm.
+        flips[k] = int(flip.sum())
+        flip_g[k] = (float(torch.maximum(g1.abs(), g2.abs())[flip].max())
+                     / max(float(g2.norm()), 1e-30)) if flips[k] else 0.0
+    worst_g = max(grad_rel, key=grad_rel.get)
+    worst_p = max(upd_over, key=upd_over.get)
+    worst_f = max(flip_g, key=flip_g.get)
+    n_flips, n_elems = sum(flips.values()), sum(t.numel() for t in c["grads"].values())
+    upd_rel = max(float((g["new"][k] - c["new"][k]).abs().max()) / max(
+        float((c["new"][k] - c["old"][k]).norm()), 1e-12) for k in c["new"])
+    out = dict(loss_cpu=lc, loss_card=lg, grad_err_of_norm=grad_rel[worst_g],
+               worst_grad=worst_g, update_err_of_bound=upd_over[worst_p], worst_update=worst_p,
+               update_err_of_update_norm=upd_rel, sign_flips=n_flips,
+               sign_flip_grad_of_norm=flip_g[worst_f], cpu_s=c["seconds"],
+               card_s=g["seconds"], launches=counts)
+    log(f"  loss card {lg:.6f}, CPU {lc:.6f}; worst gradient error {grad_rel[worst_g]:.3g} "
+        f"of its norm ({worst_g}); worst updated parameter {upd_over[worst_p]:.3g} of its "
+        f"bound ({worst_p}), {upd_rel:.3g} of its update's norm at most "
+        f"({len(grad_rel)} tensors); sign-flip allowance taken by {n_flips} of {n_elems} "
+        f"elements ({dict((k, n) for k, n in flips.items() if n)}), their largest gradient "
+        f"{flip_g[worst_f]:.3g} of its tensor's norm ({worst_f}); CPU {c['seconds']:.1f} s; "
+        f"launches {counts}")
+    check(abs(lg - lc) <= 1e-4 * abs(lc), f"phase 7b loss: card {lg}, CPU {lc}")
+    check(grad_rel[worst_g] <= 2e-3, f"phase 7b gradient {worst_g}: max abs err "
+          f"{grad_rel[worst_g]:.3g} of its norm")
+    check(upd_over[worst_p] <= 1.0, f"phase 7b updated {worst_p}: beyond its bound "
+          f"({upd_over[worst_p]:.3g} of it)")
+    check(n_flips <= FLIP_SHARE * n_elems, f"phase 7b: {n_flips} of {n_elems} elements took "
+          f"the sign-flip allowance (limit {FLIP_SHARE:g} of them)")
+    check(flip_g[worst_f] <= FLIP_GRAD, f"phase 7b {worst_f}: a sign flip at a gradient "
+          f"{flip_g[worst_f]:.3g} of its norm (limit {FLIP_GRAD:g})")
+    del cpu, card, res, c, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_resume() -> dict:
+    """Smoke zamba2 with a checkpoint directory under ``build/``: train 12
+    steps (checkpoints at 6 and 12), the restored state equal to the
+    saved one, then resume to step 20: the reference's
+    ``test_restart_resumes_mid_epoch`` expectations. The directory is
+    removed afterwards."""
+    import shutil
+
+    import torch
+
+    from repro_torch.ckpt import load_checkpoint
+    from repro_torch.ckpt.checkpoint import tree_leaves
+    from repro_torch.launch.train import run_training
+
+    ck = ROOT / "build" / "phase7c_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    try:
+        kw = dict(arch=TRAIN["arch"], smoke=True, batch=2, seq=32, device="cuda")
+        first = run_training(steps=12, ckpt_dir=str(ck), ckpt_every=6, log_every=6, **kw)
+        saved, manifest = load_checkpoint(ck, first["state"])
+        check(manifest["step"] == 12, f"phase 7c: checkpoint of step {manifest['step']}")
+        pairs = list(zip(tree_leaves(saved), tree_leaves(first["state"])))
+        check(len(pairs) > 0 and all(torch.equal(a, b.detach().cpu()) for a, b in pairs),
+              "phase 7c: the restored state differs from the saved one")
+        check(int(saved.opt.step) == 12, f"phase 7c: optimizer step {int(saved.opt.step)}")
+        out = run_training(steps=20, ckpt_dir=str(ck), resume=True, log_every=4, **kw)
+        check(out["final_step"] == 20, f"phase 7c: resumed run ended at {out['final_step']}")
+        check(out["chunks"] <= 20 - 12 + 4, f"phase 7c: resumed run read {out['chunks']} chunks")
+        res = dict(final_step=out["final_step"], chunks=out["chunks"],
+                   losses=[m["loss"] for m in first["metrics"] + out["metrics"]])
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    check(not ck.exists(), "phase 7c: checkpoint directory left behind")
+    log(f"  restored state equal to the saved one; resumed to step {res['final_step']} "
+        f"reading {res['chunks']} chunks; losses {[round(x, 4) for x in res['losses']]}")
+    return res
+
+
 # --------------------------------------------------------------------------
 
 
@@ -1119,16 +1557,11 @@ def serving_profile(steps: int = 4) -> dict:
     ``csrc/*.cu``."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
     dev = torch.device("cuda", 0)
-    kernels = {n for src in (SRC / "repro_torch" / "kernels" / "csrc").glob("*.cu")
-               for n in re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)",
-                                   src.read_text())}
     model = build_model(get_config(SERVE["arch"]), device=dev, seed=1)
     b, n = SERVE["batch_size"], SERVE["prompt_len"]
     toks = torch.as_tensor(np.random.default_rng(1).integers(0, 32000, (b, n + steps)),
@@ -1150,32 +1583,47 @@ def serving_profile(steps: int = 4) -> dict:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        by_name: dict[str, float] = {}
-        n_events = 0
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                n_events += 1
-                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e6
-        busy = sum(by_name.values())
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        port = {k: t for k, t in by_name.items()
-                if any(re.search(rf"\b{n}[<(]", k) for n in kernels)}
-        ops = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)[:10]
-        out[part] = dict(wall_s_per_call=wall / calls, device_busy_s_per_call=busy / calls,
-                         idle_share=1.0 - busy / wall if n_events else None,
-                         device_kernels_per_call=n_events / calls,
-                         top=[(name[:60], round(t / calls, 6)) for name, t in top],
-                         port_kernels=[(re.search(r"\w+(<[^>]*>)?(?=\()", k).group(0), t / calls)
-                                       for k, t in sorted(port.items(), key=lambda kv: -kv[1])],
-                         top_ops=[(e.key[:40], e.count // calls,
-                                   round(e.self_device_time_total / 1e6 / calls, 6))
-                                  for e in ops])
+        out[part] = profiled(fn, time.perf_counter() - t0, calls)
     del model, state
     return out
+
+
+def profiled(fn, wall: float, calls: int = 1) -> dict:
+    """Run ``fn`` (``calls`` calls of some work) once more under
+    ``torch.profiler``, synchronised before it stops: per call, the
+    device busy share against ``wall``, the unprofiled wall time of the
+    same run; device kernels; device time by kernel and by the PyTorch
+    op that launched it; and the device time of each kernel of
+    ``csrc/*.cu``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    kernels = {n for src in (SRC / "repro_torch" / "kernels" / "csrc").glob("*.cu")
+               for n in re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)",
+                                   src.read_text())}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name: dict[str, float] = {}
+    n_events = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n_events += 1
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e6
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    port = {k: t for k, t in by_name.items()
+            if any(re.search(rf"\b{n}[<(]", k) for n in kernels)}
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)[:10]
+    return dict(wall_s_per_call=wall / calls, device_busy_s_per_call=busy / calls,
+                idle_share=1.0 - busy / wall if n_events else None,
+                device_kernels_per_call=n_events / calls,
+                top=[(name[:60], round(t / calls, 6)) for name, t in top],
+                port_kernels=[(re.search(r"\w+(<[^>]*>)?(?=\()", k).group(0), t / calls)
+                              for k, t in sorted(port.items(), key=lambda kv: -kv[1])],
+                top_ops=[(e.key[:40], e.count // calls,
+                          round(e.self_device_time_total / 1e6 / calls, 6)) for e in ops])
 
 
 def phase_serving() -> dict:
@@ -1392,6 +1840,7 @@ def main() -> int:
     K.reset_launch_counts()
     kres = phase_kernels(tiles[0])
     kres.update(phase_lm_kernels())
+    kres.update(phase_backward_kernels())
     kres["flash_attention"]["build"] = flash_build
     phase1_counts = K.launch_counts()
     log(f"phase 2: main path, {N_TILES} tiles of {TILE}x{TILE}, one gpu lane")
@@ -1408,6 +1857,14 @@ def main() -> int:
     served = phase_serving()
     log("phase 5: zamba2-1.2B, 8 layers at full width, card vs CPU")
     phase_card_vs_cpu()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 7: training {TRAIN['arch']} at full width: {TRAIN}")
+    trained = phase_training()
+    log("phase 7b: one train step, zamba2-1.2B cut to 8 layers, float32, card vs CPU")
+    phase_train_card_vs_cpu()
+    log("phase 7c: smoke zamba2, checkpoint, resume")
+    phase_train_resume()
 
     records = []
     for name in REPLACES:
@@ -1416,6 +1873,8 @@ def main() -> int:
             launches = sum(r["launches"][name] for r in runs.values())
         elif PATHS[name] == "serving":
             launches = served["launches"][name]
+        elif PATHS[name] == "training":
+            launches = trained["launches"][name]
         else:  # on no path of the reference: its phase-1 launches
             launches = phase1_counts[name]
         check(launches > 0, f"{name}: no launch")
@@ -1431,6 +1890,10 @@ def main() -> int:
                         "ms_clean_l2", "device_ms", "kernels_per_call", "copy_device_ms",
                         "fused_op_vs_cpu")},
         ))
+        if name in ("flash_attention", "mamba2_chunk_scan"):
+            records[-1]["launches_training"] = trained["launches"][name]
+        if PATHS[name] == "training":
+            records[-1]["tpu_counterpart"] = None  # a backward kernel: the TPU had none
     log("kernels " + "; ".join(
         f"{r['name']}: launches={r['launches']} max_abs_err={r['max_abs_err']:.3g} "
         f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f}"

@@ -62,6 +62,36 @@
 // and 64-key K/V tiles staged in shared memory as float32 (K transposed,
 // rows padded), 4x4 scores and 4 x D/16 outputs per thread, scalar FMAs.
 // It is held to the float32 rate (67 TFLOP/s).
+//
+// Training: both forward kernels can also write the float32 log-sum-exp
+// of each row, lse[b, h, row] = log(sum_j exp(s_j * scale)), for the
+// backward pass; serving passes no lse buffer and runs the bf16 kernel
+// instantiated without that store (the `LSE = false` template).
+//
+// Backward (`flash_bwd_*`, CUDA cores, float32 arithmetic for both
+// types; no TPU counterpart: the JAX package differentiates plain jnp).
+// With P = exp(S * scale - lse) recomputed from q, k and the forward's
+// lse, Dvec = rowsum(dO * O):
+//   dV = P^T dO, dP = dO V^T, dS = P * (dP - Dvec),
+//   dQ = dS K * scale, dK = dS^T Q * scale,
+// causal mask and ragged tiles as in the forward (masked P is 0).
+// Three launches on the caller's stream: `flash_bwd_dvec_kernel` (one
+// warp per row), then `flash_bwd_dq_kernel` (one block per q block of 64
+// rows, walking the key tiles up to its diagonal) and
+// `flash_bwd_dkdv_kernel` (one block per key block of 64 rows and KV
+// head, walking every query head of its group and the q tiles from its
+// diagonal down). Each output element is summed by one thread in a
+// fixed order: no atomics, and repeated calls are bit-equal. GQA's sum
+// over the query heads sharing a KV head happens inside the dK/dV block.
+// Tiles sit in shared memory as float32 rows of D + 1 (an odd stride:
+// a thread's row-wise dot products read distinct banks).
+// Bound: at B=4, H=32, S=1024, D=64, bf16, causal, q, k, v, o, dO, lse
+// in and dQ, dK, dV out move 117.4 MB (0.035 ms at 3.35 TB/s); the five
+// products over the lower triangle (S and dP recomputed, dV, dK, dQ)
+// need 5 * 2 * B*H*S*(S+1)/2 * D = 43.0 GFLOP (0.0435 ms at 989 TFLOP/s
+// on the tensor cores): operations bound it. This first kernel runs
+// them on the CUDA cores (7 products, 67 TFLOP/s peak); a tensor-core
+// version is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,8 +105,12 @@ constexpr int THREADS = 256;
 constexpr float NEG = -1.0e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
 
 template <int D>
 struct Smem {
@@ -91,8 +125,8 @@ struct Smem {
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int H, int HKV,
-                 int S, float scale, int causal) {
+                 const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                 int H, int HKV, int S, float scale, int causal) {
   using L = Smem<D>;
   constexpr int DJ = D / 16;
   extern __shared__ float smem[];
@@ -218,11 +252,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
       op[static_cast<long long>(row) * D + tx + 16 * j] = from_f<T>(acc[i][j] / den);
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<long long>(b) * H + h) * S + row] = m[i] + logf(den);
   }
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
            int HKV, int S, float scale, int causal, void* stream) {
   using L = Smem<D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -230,17 +266,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<T, D><<<grid, THREADS, L::BYTES, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, H, HKV, S, scale, causal);
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, H, HKV, S, scale, causal);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H,
-             int HKV, int S, int D, float scale, int causal, void* stream) {
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+             int H, int HKV, int S, int D, float scale, int causal, void* stream) {
   switch (D) {
-    case 32: return launch<T, 32>(q, k, v, o, B, H, HKV, S, scale, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, H, HKV, S, scale, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, HKV, S, scale, causal, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, B, H, HKV, S, scale, causal, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, B, H, HKV, S, scale, causal, stream);
+    case 128: return launch<T, 128>(q, k, v, o, lse, B, H, HKV, S, scale, causal, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -252,6 +288,7 @@ namespace tc {
 
 using bf16 = __nv_bfloat16;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // Rows of D bf16 in shared memory are swizzled: 16-byte chunk `ch` of
 // row `row` is stored at chunk ch ^ key(row), so the 8 rows that one
@@ -452,11 +489,11 @@ constexpr int smem_bytes() {
   return (BQ + 4 * BK) * D * 2;  // Q, and two stages of K and V
 }
 
-template <int D, int MINB>
+template <int D, int MINB, bool LSE>
 __global__ void __launch_bounds__(THREADS, MINB)
 flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ o, int H, int HKV, int S,
-                  float scale_log2, int causal) {
+                  const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                  int H, int HKV, int S, float scale_log2, int causal) {
   constexpr int KD = D / 16, NT = BK / 8, DT = D / 8, TILE = BK * D;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
@@ -528,50 +565,430 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = 0; j < DT; ++j)
       *reinterpret_cast<unsigned*>(orow + j * 8) =
           pack_bf16(acc[j][2 * i] * inv, acc[j][2 * i + 1] * inv);
+    if constexpr (LSE) {  // m is in log2 units: lse = (m + log2 l) ln 2
+      if (t == 0)
+        lse[(static_cast<long long>(b) * H + h) * S + row] =
+            (m[i] + log2f(fmaxf(l[2 * i], 1e-30f))) * LN2;
+    }
   }
 }
 
-template <int D, int MINB>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int HKV,
-           int S, float scale, int causal, void* stream) {
+template <int D, int MINB, bool LSE>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+           int HKV, int S, float scale, int causal, void* stream) {
   constexpr int bytes = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bf16_kernel<D, MINB>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bf16_kernel<D, MINB, LSE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(H, B, (S + BQ - 1) / BQ);
-  flash_bf16_kernel<D, MINB><<<grid, THREADS, bytes, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, H, HKV, S, scale * LOG2E,
-      causal);
+  flash_bf16_kernel<D, MINB, LSE><<<grid, THREADS, bytes, (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, H, HKV, S,
+      scale * LOG2E, causal);
   return (int)cudaGetLastError();
+}
+
+template <int D, int MINB>
+int launch_lse(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+               int H, int HKV, int S, float scale, int causal, void* stream) {
+  return lse == nullptr
+             ? launch<D, MINB, false>(q, k, v, o, lse, B, H, HKV, S, scale, causal, stream)
+             : launch<D, MINB, true>(q, k, v, o, lse, B, H, HKV, S, scale, causal, stream);
 }
 
 // Blocks per SM: D <= 64 is held to 128 registers, so 4 blocks (16
 // warps) share an SM; D = 128 needs ~200 registers (2 blocks).
-int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H, int HKV,
-             int S, int D, float scale, int causal, void* stream) {
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+             int HKV, int S, int D, float scale, int causal, void* stream) {
   switch (D) {
-    case 32: return launch<32, 4>(q, k, v, o, B, H, HKV, S, scale, causal, stream);
-    case 64: return launch<64, 4>(q, k, v, o, B, H, HKV, S, scale, causal, stream);
-    case 128: return launch<128, 1>(q, k, v, o, B, H, HKV, S, scale, causal, stream);
+    case 32: return launch_lse<32, 4>(q, k, v, o, lse, B, H, HKV, S, scale, causal, stream);
+    case 64: return launch_lse<64, 4>(q, k, v, o, lse, B, H, HKV, S, scale, causal, stream);
+    case 128: return launch_lse<128, 1>(q, k, v, o, lse, B, H, HKV, S, scale, causal, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// backward on the CUDA cores
+
+namespace bwd {
+
+constexpr int BQ = 64;  // query rows per tile
+constexpr int BK = 64;  // keys per tile
+constexpr int THREADS = 256;
+
+template <int D>
+struct Smem {
+  static constexpr int DS = D + 1;   // a row of D floats, odd stride
+  static constexpr int PS = BK + 1;  // a row of a 64 x 64 score tile
+  // dQ: Q, dO, K, V tiles, the dS tile, lse and Dvec of the q rows.
+  static constexpr int DQ_BYTES = ((2 * BQ + 2 * BK) * DS + BQ * PS + 2 * BQ) * 4;
+  // dK/dV: K, V, Q, dO tiles, P^T and dS^T tiles, lse and Dvec.
+  static constexpr int DKV_BYTES = ((2 * BQ + 2 * BK) * DS + 2 * BK * PS + 2 * BQ) * 4;
+};
+
+// Rows [r0, r0 + 64) of an (S, D) matrix into a float tile of row
+// stride D + 1; rows past S are zero.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int r0, int S,
+                                          int tid) {
+  for (int i = tid; i < 64 * D; i += THREADS) {
+    const int r = i / D, c = i % D;
+    dst[r * (D + 1) + c] = r0 + r < S ? to_f(src[static_cast<long long>(r0 + r) * D + c]) : 0.f;
+  }
+}
+
+// lse and Dvec of rows [r0, r0 + 64) (0 past S).
+__device__ __forceinline__ void load_rows(float* ls, float* dv, const float* __restrict__ lse,
+                                          const float* __restrict__ dvec, int r0, int S,
+                                          int tid) {
+  if (tid < BQ) {
+    const bool ok = r0 + tid < S;
+    ls[tid] = ok ? lse[r0 + tid] : 0.f;
+    dv[tid] = ok ? dvec[r0 + tid] : 0.f;
+  }
+}
+
+// dvec[row] = sum_d dout[row, d] * o[row, d]: one warp per row.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dvec_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                      float* __restrict__ dvec, long long rows, int D) {
+  const long long row = static_cast<long long>(blockIdx.x) * (THREADS / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;  // the whole warp leaves together
+  const T* op = o + row * D;
+  const T* dp = dout + row * D;
+  float s = 0.f;
+  for (int d = lane; d < D; d += 32) s = fmaf(to_f(op[d]), to_f(dp[d]), s);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) dvec[row] = s;
+}
+
+// One block per (q block, head, batch): dQ of 64 rows. A thread holds
+// rows ty * 4 + i and keys tx + 16 j of each 64 x 64 tile, then rows
+// ty * 4 + i and dims tx + 16 j of dQ.
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const T* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ dvec, T* __restrict__ dq, int H, int HKV, int S,
+                    float scale, int causal) {
+  using L = Smem<D>;
+  constexpr int DS = L::DS, PS = L::PS, DJ = D / 16;
+  extern __shared__ float smem[];
+  float* Qs = smem;
+  float* dOs = Qs + BQ * DS;
+  float* Ks = dOs + BQ * DS;
+  float* Vs = Ks + BK * DS;
+  float* dSs = Vs + BK * DS;
+  float* Ls = dSs + BQ * PS;
+  float* Dv = Ls + BQ;
+
+  const int qb = gridDim.x - 1 - blockIdx.x;  // heaviest (causal) first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (H / HKV);
+  const int q0 = qb * BQ;
+  const long long rows = (static_cast<long long>(b) * H + h) * S;
+  const long long qoff = rows * D;
+  const long long koff = (static_cast<long long>(b) * HKV + hk) * S * D;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+
+  load_tile<T, D>(Qs, q + qoff, q0, S, tid);
+  load_tile<T, D>(dOs, dout + qoff, q0, S, tid);
+  load_rows(Ls, Dv, lse + rows, dvec + rows, q0, S, tid);
+
+  float acc[4][DJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+
+  const int kend = causal ? min(S, q0 + BQ) : S;
+  const int nkb = (kend + BK - 1) / BK;
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int k0 = kb * BK;
+    __syncthreads();  // the previous tiles are consumed
+    load_tile<T, D>(Ks, k + koff, k0, S, tid);
+    load_tile<T, D>(Vs, v + koff, k0, S, tid);
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float qv[4], ov[4], kv[4], vv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        qv[i] = Qs[(ty * 4 + i) * DS + d];
+        ov[i] = dOs[(ty * 4 + i) * DS + d];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        kv[j] = Ks[(tx + 16 * j) * DS + d];
+        vv[j] = Vs[(tx + 16 * j) * DS + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty * 4 + i, row = q0 + r;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + tx + 16 * j;
+        const bool ok = row < S && col < S && (!causal || col <= row);
+        const float p = ok ? expf(s[i][j] * scale - Ls[r]) : 0.f;
+        dSs[r * PS + tx + 16 * j] = p * (dp[i][j] - Dv[r]);
+      }
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      float dsv[4], kv[DJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dsv[i] = dSs[(ty * 4 + i) * PS + kk];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) kv[j] = Ks[kk * DS + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(dsv[i], kv[j], acc[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    if (row >= S) continue;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j)
+      dq[qoff + static_cast<long long>(row) * D + tx + 16 * j] = from_f<T>(acc[i][j] * scale);
+  }
+}
+
+// One block per (key block, KV head, batch): dK and dV of 64 keys, summed
+// over the query heads of the group and their q tiles. A thread holds
+// keys ty * 4 + i and queries tx + 16 j of each tile, then keys
+// ty * 4 + i and dims tx + 16 j of dK and dV.
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ dvec,
+                      T* __restrict__ dk, T* __restrict__ dv, int H, int HKV, int S,
+                      float scale, int causal) {
+  using L = Smem<D>;
+  constexpr int DS = L::DS, PS = L::PS, DJ = D / 16;
+  extern __shared__ float smem[];
+  float* Ks = smem;
+  float* Vs = Ks + BK * DS;
+  float* Qs = Vs + BK * DS;
+  float* dOs = Qs + BQ * DS;
+  float* Pt = dOs + BQ * DS;  // [key][query]
+  float* dSt = Pt + BK * PS;  // [key][query]
+  float* Ls = dSt + BK * PS;
+  float* Dv = Ls + BQ;
+
+  const int kb = blockIdx.x;  // the first key blocks see the most q tiles (causal)
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int group = H / HKV;
+  const int k0 = kb * BK;
+  const long long koff = (static_cast<long long>(b) * HKV + hk) * S * D;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+
+  load_tile<T, D>(Ks, k + koff, k0, S, tid);
+  load_tile<T, D>(Vs, v + koff, k0, S, tid);
+
+  float adk[4][DJ], adv[4][DJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) adk[i][j] = adv[i][j] = 0.f;
+
+  const int nqb = (S + BQ - 1) / BQ;
+  const int qstart = causal ? k0 / BQ : 0;
+  for (int g = 0; g < group; ++g) {
+    const int h = hk * group + g;
+    const long long rows = (static_cast<long long>(b) * H + h) * S;
+    for (int qb = qstart; qb < nqb; ++qb) {
+      const int q0 = qb * BQ;
+      __syncthreads();  // the previous tiles are consumed
+      load_tile<T, D>(Qs, q + rows * D, q0, S, tid);
+      load_tile<T, D>(dOs, dout + rows * D, q0, S, tid);
+      load_rows(Ls, Dv, lse + rows, dvec + rows, q0, S, tid);
+      __syncthreads();
+
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        float kv[4], vv[4], qv[4], ov[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          kv[i] = Ks[(ty * 4 + i) * DS + d];
+          vv[i] = Vs[(ty * 4 + i) * DS + d];
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          qv[j] = Qs[(tx + 16 * j) * DS + d];
+          ov[j] = dOs[(tx + 16 * j) * DS + d];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
+            dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = k0 + ty * 4 + i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = tx + 16 * j, row = q0 + c;
+          const bool ok = row < S && key < S && (!causal || key <= row);
+          const float p = ok ? expf(s[i][j] * scale - Ls[c]) : 0.f;
+          Pt[(ty * 4 + i) * PS + c] = p;
+          dSt[(ty * 4 + i) * PS + c] = p * (dp[i][j] - Dv[c]);
+        }
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int qq = 0; qq < BQ; ++qq) {
+        float pv[4], dsv[4], ov[DJ], qv[DJ];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pv[i] = Pt[(ty * 4 + i) * PS + qq];
+          dsv[i] = dSt[(ty * 4 + i) * PS + qq];
+        }
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) {
+          ov[j] = dOs[qq * DS + tx + 16 * j];
+          qv[j] = Qs[qq * DS + tx + 16 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < DJ; ++j) {
+            adv[i][j] = fmaf(pv[i], ov[j], adv[i][j]);
+            adk[i][j] = fmaf(dsv[i], qv[j], adk[i][j]);
+          }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + ty * 4 + i;
+    if (key >= S) continue;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) {
+      const long long e = koff + static_cast<long long>(key) * D + tx + 16 * j;
+      dk[e] = from_f<T>(adk[i][j] * scale);
+      dv[e] = from_f<T>(adv[i][j]);
+    }
+  }
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, const void* o, const void* lse,
+           const void* dout, void* dvec, void* dq, void* dk, void* dv, int B, int H, int HKV,
+           int S, float scale, int causal, void* stream) {
+  using L = Smem<D>;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         L::DQ_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, L::DKV_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const long long rows = static_cast<long long>(B) * H * S;
+  flash_bwd_dvec_kernel<T><<<(unsigned)((rows + THREADS / 32 - 1) / (THREADS / 32)), THREADS,
+                             0, st>>>((const T*)o, (const T*)dout, (float*)dvec, rows, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int nb = (S + BQ - 1) / BQ;
+  flash_bwd_dq_kernel<T, D><<<dim3(nb, H, B), THREADS, L::DQ_BYTES, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
+      (const float*)dvec, (T*)dq, H, HKV, S, scale, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dkdv_kernel<T, D><<<dim3(nb, HKV, B), THREADS, L::DKV_BYTES, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
+      (const float*)dvec, (T*)dk, (T*)dv, H, HKV, S, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, const void* o, const void* lse,
+             const void* dout, void* dvec, void* dq, void* dk, void* dv, int B, int H, int HKV,
+             int S, int D, float scale, int causal, void* stream) {
+  switch (D) {
+    case 32:
+      return launch<T, 32>(q, k, v, o, lse, dout, dvec, dq, dk, dv, B, H, HKV, S, scale,
+                           causal, stream);
+    case 64:
+      return launch<T, 64>(q, k, v, o, lse, dout, dvec, dq, dk, dv, B, H, HKV, S, scale,
+                           causal, stream);
+    case 128:
+      return launch<T, 128>(q, k, v, o, lse, dout, dvec, dq, dk, dv, B, H, HKV, S, scale,
+                            causal, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace bwd
+
 }  // namespace
 
 // q (B, H, S, D), k/v (B, HKV, S, D), o (B, H, S, D), contiguous; D in
 // {32, 64, 128}; H a multiple of HKV; bf16 pointers 16-byte aligned.
-// Returns the CUDA error, or 0.
+// lse (B, H, S) float32, or null for none. Returns the CUDA error, or 0.
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
-                                   void* o, int B, int H, int HKV, int S, int D,
+                                   void* o, void* lse, int B, int H, int HKV, int S, int D,
                                    float scale, int causal, void* stream) {
-  return dispatch<float>(q, k, v, o, B, H, HKV, S, D, scale, causal, stream);
+  return dispatch<float>(q, k, v, o, (float*)lse, B, H, HKV, S, D, scale, causal, stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
-                                    void* o, int B, int H, int HKV, int S, int D,
+                                    void* o, void* lse, int B, int H, int HKV, int S, int D,
                                     float scale, int causal, void* stream) {
-  return tc::dispatch(q, k, v, o, B, H, HKV, S, D, scale, causal, stream);
+  return tc::dispatch(q, k, v, o, (float*)lse, B, H, HKV, S, D, scale, causal, stream);
+}
+
+// Backward: q, o, dout, dq (B, H, S, D); k, v, dk, dv (B, HKV, S, D); lse
+// (B, H, S) float32 from the forward; dvec (B, H, S) float32 scratch. All
+// contiguous, of one type but lse and dvec. Returns the CUDA error, or 0.
+extern "C" int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
+                                       const void* o, const void* lse, const void* dout,
+                                       void* dvec, void* dq, void* dk, void* dv, int B, int H,
+                                       int HKV, int S, int D, float scale, int causal,
+                                       void* stream) {
+  return bwd::dispatch<float>(q, k, v, o, lse, dout, dvec, dq, dk, dv, B, H, HKV, S, D,
+                              scale, causal, stream);
+}
+
+extern "C" int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
+                                        const void* o, const void* lse, const void* dout,
+                                        void* dvec, void* dq, void* dk, void* dv, int B, int H,
+                                        int HKV, int S, int D, float scale, int causal,
+                                        void* stream) {
+  return bwd::dispatch<__nv_bfloat16>(q, k, v, o, lse, dout, dvec, dq, dk, dv, B, H, HKV, S,
+                                      D, scale, causal, stream);
 }

@@ -1,9 +1,12 @@
 """Flash attention on the card: wrapper of ``csrc/flash_attention.cu``.
 
 Replaces the TPU kernel ``flash_attention_pallas``
-(``repro/kernels/flash_attention.py``). The plain version is
-:func:`repro_torch.kernels.ref.flash_attention_ref`; the source's header
-says what bounds the kernel on the card.
+(``repro/kernels/flash_attention.py``). The plain versions are
+:func:`repro_torch.kernels.ref.flash_attention_ref` (forward, with
+``flash_attention_fwd_ref`` also giving the log-sum-exp) and
+:func:`repro_torch.kernels.ref.flash_attention_bwd_ref` (backward, which
+has no TPU counterpart); the source's header says what bounds each
+kernel on the card.
 """
 
 from __future__ import annotations
@@ -16,26 +19,28 @@ import torch
 from . import _build
 from .ref import flash_attention_ref
 
-__all__ = ["flash_attention_cuda", "flash_attention_ref", "launches", "HEAD_DIMS"]
+__all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda", "flash_attention_ref",
+           "launches", "bwd_launches", "BWD_KERNELS", "HEAD_DIMS"]
 
-#: Kernel launches since the last reset (one per wrapper call).
+#: Forward kernel launches since the last reset (one per wrapper call).
 launches = 0
+#: Backward kernel launches since the last reset: three per wrapper call
+#: (the row-sum, dQ and dK/dV kernels).
+bwd_launches = 0
+#: Kernels one backward call launches.
+BWD_KERNELS = 3
 
 #: Head dims the kernel is instantiated for.
 HEAD_DIMS = (32, 64, 128)
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
+_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
+_BWD_ARGTYPES = [_P] * 10 + [_I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
 _FNS = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True) -> torch.Tensor:
-    """q (B, H, S, D), k/v (B, Hkv, S, D) on the card, contiguous,
-    float32 or bfloat16 (all one type), H a multiple of Hkv, D in
-    :data:`HEAD_DIMS`, any S -> (B, H, S, D) in q's type. bfloat16
-    tensors must start 16-byte aligned (the kernel copies 16-byte
-    chunks with ``cp.async``)."""
-    global launches
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more: torch.Tensor) -> None:
+    """Shapes, device, type, layout and (bfloat16) alignment of q, k, v
+    and of ``more`` tensors shaped like q."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"expected q (B,H,S,D) and k, v (B,Hkv,S,D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -43,7 +48,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hkv = k.shape[1]
     if k.shape[0] != b or k.shape[2] != s or k.shape[3] != d or h % hkv:
         raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)} do not match")
-    for t in (q, k, v):
+    for t in more:
+        if t.shape != q.shape:
+            raise ValueError(f"expected {tuple(q.shape)} like q; got {tuple(t.shape)}")
+    for t in (q, k, v, *more):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError("q, k, v must lie on one CUDA device")
         if t.dtype != q.dtype or t.dtype not in _FNS:
@@ -52,18 +60,67 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError("q, k, v must be contiguous")
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v, *more)):
         raise ValueError("bfloat16 q, k, v must start 16-byte aligned")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True, return_lse: bool = False):
+    """q (B, H, S, D), k/v (B, Hkv, S, D) on the card, contiguous,
+    float32 or bfloat16 (all one type), H a multiple of Hkv, D in
+    :data:`HEAD_DIMS`, any S -> (B, H, S, D) in q's type, and with
+    ``return_lse`` also the float32 log-sum-exp of each row (B, H, S)
+    that the backward needs. bfloat16 tensors must start 16-byte
+    aligned (the kernel copies 16-byte chunks with ``cp.async``)."""
+    global launches
+    _check(q, k, v)
+    b, h, s, d = q.shape
     out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if return_lse else None
     if q.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     fn = getattr(_build.load("flash_attention"), _FNS[q.dtype])
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, h, hkv, s, d, 1.0 / math.sqrt(d), int(causal), stream)
+                 lse.data_ptr() if return_lse else None,
+                 b, h, k.shape[1], s, d, 1.0 / math.sqrt(d), int(causal), stream)
     if err:
         raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                             causal: bool = True):
+    """Gradients (dq, dk, dv) of the attention ``out`` = flash(q, k, v)
+    given its float32 row log-sum-exp ``lse`` (B, H, S) and the output's
+    gradient ``dout``, each in its input's type; dk and dv sum over the
+    query heads that share a KV head. Same layout rules as the forward;
+    a non-contiguous ``dout`` is copied."""
+    global bwd_launches
+    dout = dout.contiguous()
+    _check(q, k, v, out, dout)
+    b, h, s, d = q.shape
+    if lse.shape != (b, h, s) or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"lse must be float32 {(b, h, s)} on {q.device}")
+    lse = lse.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    dvec = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    fn = getattr(_build.load("flash_attention"), "flash_attention_bwd_"
+                 + ("f32" if q.dtype == torch.float32 else "bf16"))
+    fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                 dout.data_ptr(), dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), b, h, k.shape[1], s, d, 1.0 / math.sqrt(d), int(causal),
+                 stream)
+    if err:
+        raise RuntimeError(f"flash_attention backward launch failed: cudaError {err}")
+    bwd_launches += BWD_KERNELS
+    return dq, dk, dv

@@ -5,7 +5,10 @@ the card (``chip_smoke.py``, the ``gpu``-marked tests), and the
 function the kernel wrapper runs for a tensor that lies on the CPU.
 They repeat the arithmetic of the JAX package's oracles
 (``repro/kernels/ref.py``) operation by operation, in float32, so that
-the CPU tests can hold them against that package.
+the CPU tests can hold them against that package. The backward versions
+(``*_bwd_ref``) have no oracle there (the JAX package differentiates
+plain ``jnp``): they write the gradient out from its formulas, and the
+CPU tests hold them against ``jax.vjp`` of the forward oracles.
 """
 
 from __future__ import annotations
@@ -20,8 +23,11 @@ __all__ = [
     "sobel_stats_ref",
     "feature_fused_ref",
     "flash_attention_ref",
+    "flash_attention_fwd_ref",
+    "flash_attention_bwd_ref",
     "decode_attention_ref",
     "mamba2_chunk_scan_ref",
+    "mamba2_chunk_scan_bwd_ref",
     "DECONV_MATRIX",
     "GRAY_WEIGHTS",
 ]
@@ -117,21 +123,61 @@ def _kv_heads(x: torch.Tensor, group: int, dim: int) -> torch.Tensor:
     return x if group == 1 else x.repeat_interleave(group, dim=dim)
 
 
+def _flash_logits(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
+    """Scaled float32 scores (B, H, S, S), -inf above the diagonal when causal."""
+    group = q.shape[1] // k.shape[1]
+    s, d = q.shape[2], q.shape[3]
+    kf = _kv_heads(k, group, 1).float()
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * (1.0 / np.sqrt(d))
+    if causal:
+        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~mask, float("-inf"))
+    return logits
+
+
+def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            causal: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_ref`'s output and the float32 log-sum-exp of
+    each row's scaled scores (B, H, S), which the backward takes."""
+    group = q.shape[1] // k.shape[1]
+    logits = _flash_logits(q, k, causal)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, _kv_heads(v, group, 1).float()).to(q.dtype)
+    return out, torch.logsumexp(logits, dim=-1)
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True) -> torch.Tensor:
     """(B, H, S, D) attention with optional causal mask; float32 softmax.
     k/v may carry fewer heads (B, Hkv, S, D): q head ``h`` reads kv head
     ``h // (H // Hkv)``. Output in q's dtype."""
-    group = q.shape[1] // k.shape[1]
-    s, d = q.shape[2], q.shape[3]
-    kf = _kv_heads(k, group, 1).float()
-    vf = _kv_heads(v, group, 1).float()
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * (1.0 / np.sqrt(d))
-    if causal:
-        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
-        logits = logits.masked_fill(~mask, float("-inf"))
-    p = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+    return flash_attention_fwd_ref(q, k, v, causal)[0]
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                            causal: bool = True):
+    """Gradients (dq, dk, dv) of ``out`` = attention(q, k, v), in float32
+    from the formulas, each returned in its input's type. P is recomputed
+    from q, k and the forward's row log-sum-exp ``lse``; with Dvec =
+    rowsum(dout * out): dV = P^T dO, dP = dO V^T, dS = P (dP - Dvec),
+    dQ = dS K scale, dK = dS^T Q scale. dk and dv sum over the query
+    heads sharing a KV head."""
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    group = h // hkv
+    scale = 1.0 / np.sqrt(d)
+    p = torch.exp(_flash_logits(q, k, causal) - lse.float()[..., None])
+    dof = dout.float()
+    dvec = (dof * out.float()).sum(-1)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, _kv_heads(v, group, 1).float())
+    ds = p * (dp - dvec[..., None])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, _kv_heads(k, group, 1).float()) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    dk = dk.view(b, hkv, group, s, d).sum(2)
+    dv = dv.view(b, hkv, group, s, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -170,3 +216,28 @@ def mamba2_chunk_scan_ref(decay: torch.Tensor, inc: torch.Tensor):
         states[i] = s.to(inc.dtype)
         s = decay[i].float()[:, None] * s + inc[i].float()
     return states, s.to(inc.dtype)
+
+
+def mamba2_chunk_scan_bwd_ref(decay: torch.Tensor, states: torch.Tensor,
+                              g_states: torch.Tensor | None, g_final: torch.Tensor | None):
+    """Gradients of :func:`mamba2_chunk_scan_ref` from the states it
+    returned and the gradients of its outputs (None: zeros): the adjoint
+    recurrence run backwards with a float32 carry,
+
+        lam_C = g_final;  g_inc[c] = lam_{c+1};
+        g_decay[c, h] = sum_f lam_{c+1}[h, f] states[c, h, f];
+        lam_c = decay_c * lam_{c+1} + g_states[c].
+
+    Returns (g_decay (C, H) float32, g_inc (C, H, F) in the states' type)."""
+    c, h, f = states.shape
+    lam = (torch.zeros((h, f), dtype=torch.float32, device=states.device)
+           if g_final is None else g_final.float())
+    g_inc = torch.empty_like(states)
+    g_decay = torch.empty((c, h), dtype=torch.float32, device=states.device)
+    for i in reversed(range(c)):
+        g_inc[i] = lam.to(states.dtype)
+        g_decay[i] = (lam * states[i].float()).sum(-1)
+        lam = decay[i].float()[:, None] * lam
+        if g_states is not None:
+            lam = lam + g_states[i].float()
+    return g_decay, g_inc

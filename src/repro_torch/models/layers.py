@@ -43,20 +43,30 @@ BF16_WEIGHTS = frozenset({
 class Params(nn.Module):
     """A parameter tree that reads like the reference's pytree
     (``p["attn"]["wq"]``, ``"bq" in p``). Dicts become nested
-    ``Params``, lists ``nn.ModuleList``s, tensors frozen parameters
-    (serving needs no gradients), stored in bfloat16 where the name is
-    in :data:`BF16_WEIGHTS`."""
+    ``Params``, lists ``nn.ModuleList``s, tensors parameters, in one of
+    two storages chosen when the tree is built:
 
-    def __init__(self, tree: dict | None = None):
+    * serving (``trainable=False``): frozen parameters, stored in
+      bfloat16 where the name is in :data:`BF16_WEIGHTS`;
+    * training (``trainable=True``): float32 masters with
+      ``requires_grad``, as the reference keeps every leaf; the layers
+      cast the matmul weights to the activation type where they use
+      them, as the reference does (``.astype(x.dtype)``).
+    """
+
+    def __init__(self, tree: dict | None = None, trainable: bool = False):
         super().__init__()
+        self.trainable = trainable
         for key, value in (tree or {}).items():
             self[key] = value
 
     def __setitem__(self, key: str, value) -> None:
         if isinstance(value, dict):
-            self.add_module(key, Params(value))
+            self.add_module(key, Params(value, self.trainable))
         elif isinstance(value, (list, tuple)):
-            self.add_module(key, nn.ModuleList(Params(v) for v in value))
+            self.add_module(key, nn.ModuleList(Params(v, self.trainable) for v in value))
+        elif self.trainable:
+            self.register_parameter(key, nn.Parameter(value.float(), requires_grad=True))
         else:
             t = value.to(COMPUTE_DTYPE) if key in BF16_WEIGHTS else value.float()
             self.register_parameter(key, nn.Parameter(t, requires_grad=False))

@@ -12,11 +12,18 @@ for ``dense``; ``{"mamba": [{"conv", "ssm"} per layer], "shared_kv":
 [{"k", "v"} per shared-block application]}`` for ``hybrid``. A decode
 step writes the new K/V rows into the caches in place (the reference
 returns new arrays) and returns the same dict.
+
+Training (``train_forward``) rematerialises each layer of the stack with
+``torch.utils.checkpoint`` where the reference's ``_scan_blocks`` wraps
+its scan body in ``jax.checkpoint``: a layer keeps only its input, and
+its forward runs again in the backward pass. zamba2's shared attention
+block is not rematerialised, as in the reference.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .attention import attention_decode, attention_train, init_attention, init_kv_cache
 from .config import ArchConfig
@@ -140,15 +147,16 @@ def init_model_params(gen: torch.Generator, cfg: ArchConfig,
 
 
 def compute_dtype(p) -> torch.dtype:
-    """The activation dtype: the embedding's storage dtype, bfloat16 as
-    built (``model.float()`` runs the whole model in float32)."""
-    return p["embed"].dtype
+    """The activation dtype: a trainable model's ``act_dtype``; else the
+    embedding's storage dtype, bfloat16 as built (``model.float()`` runs
+    the whole model in float32)."""
+    return getattr(p, "act_dtype", None) or p["embed"].dtype
 
 
 def _embed_in(p, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
     if cfg.frontend != "none":
         raise _unported(cfg.family)
-    return p["embed"][tokens]
+    return p["embed"][tokens].to(compute_dtype(p))
 
 
 def _lm_head(p, cfg: ArchConfig, x) -> torch.Tensor:
@@ -157,9 +165,21 @@ def _lm_head(p, cfg: ArchConfig, x) -> torch.Tensor:
     return (x @ w.to(x.dtype)).float()
 
 
-def _forward(p, tokens: torch.Tensor, cfg: ArchConfig, max_len: int | None):
+def _layer(fn, remat: bool, *args):
+    """One layer of the stack, rematerialised when asked and autograd
+    records (the reference's ``jax.checkpoint`` of its scan body)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _forward(p, tokens: torch.Tensor, cfg: ArchConfig, max_len: int | None,
+             remat: bool = False):
     """The layer stack over a whole sequence. With ``max_len``, also
-    the decode caches of the prompt, padded to ``max_len`` positions."""
+    the decode caches of the prompt, padded to ``max_len`` positions.
+    With ``remat``, each layer of the stack keeps only its input for the
+    backward pass and runs again there; zamba2's shared block keeps its
+    activations."""
     fam = cfg.family
     if fam not in PORTED_FAMILIES:
         raise _unported(fam)
@@ -180,15 +200,15 @@ def _forward(p, tokens: torch.Tensor, cfg: ArchConfig, max_len: int | None):
     if fam == "dense":
         kv = []
         for blk in p["blocks"]:
-            x, k, v = _dense_block(blk, x, cfg)
+            x, k, v = _layer(_dense_block, remat, blk, x, cfg)
             kv.append(kv_cache(k, v))
         return x, {"kv": kv}
     mamba, shared_kv = [], []
     blocks, segs, off = p["blocks"], zamba_segments(cfg), 0
     for si, seg in enumerate(segs):
         for blk in blocks[off : off + seg]:
-            x, cache = _mamba_block(blk, x, cfg)
-            mamba.append(cache)
+            x, cache = _layer(_mamba_block, remat, blk, x, cfg)
+            mamba.append(None if max_len is None else cache)
         off += seg
         if si < len(segs) - 1:
             x, k, v = _dense_block(p["shared"], x, cfg)
@@ -196,9 +216,11 @@ def _forward(p, tokens: torch.Tensor, cfg: ArchConfig, max_len: int | None):
     return x, {"mamba": mamba, "shared_kv": shared_kv}
 
 
-def train_forward(p, inputs: dict, cfg: ArchConfig):
-    """-> (logits (B,S,V) float32, aux scalar). Forward only."""
-    x, _ = _forward(p, inputs["tokens"], cfg, None)
+def train_forward(p, inputs: dict, cfg: ArchConfig, remat: bool = True):
+    """-> (logits (B,S,V) float32, aux scalar), the stack rematerialised
+    per layer when ``remat``. The ported families have no auxiliary loss
+    (the reference's ``aux`` is the MoE balance loss), so ``aux`` is 0."""
+    x, _ = _forward(p, inputs["tokens"], cfg, None, remat)
     return _lm_head(p, cfg, x), torch.zeros((), device=x.device)
 
 

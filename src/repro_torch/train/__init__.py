@@ -1,5 +1,7 @@
-"""Step builders of the port (serving only so far)."""
+"""Step builders of the port: training and serving."""
 
-from .step import make_prefill_step, make_serve_step
+from .step import (TrainState, loss_and_grads, make_prefill_step, make_serve_step,
+                   make_train_step)
 
-__all__ = ["make_prefill_step", "make_serve_step"]
+__all__ = ["TrainState", "loss_and_grads", "make_prefill_step", "make_serve_step",
+           "make_train_step"]

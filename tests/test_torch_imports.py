@@ -27,6 +27,7 @@ COPIED = [
     *(f"transport/{m}.py" for m in ("bus", "inproc", "socketbus", "endpoint")),
     *(f"serving/{p.name}" for p in sorted((REF / "serving").glob("*.py"))),
     "app/tiles.py",
+    "data/ledger.py",
     "models/config.py",
     *(f"configs/{p.name}" for p in sorted((REF / "configs").glob("*.py"))
       if p.name != "__init__.py"),
@@ -59,6 +60,8 @@ def test_import_with_jax_blocked():
         "import repro_torch.kernels.ops, repro_torch.kernels._build\n"
         "import repro_torch.models, repro_torch.configs, repro_torch.train\n"
         "import repro_torch.launch.serve, repro_torch.launch.costs_h100\n"
+        "import repro_torch.optim, repro_torch.data, repro_torch.ckpt\n"
+        "import repro_torch.launch.train\n"
         "import chip_smoke\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and"
         " (m == 'repro' or m.startswith(('repro.', 'jax')))]\n"
@@ -149,3 +152,24 @@ def test_configs_match_reference():
             get_config(arch))
         assert dataclasses.asdict(port_configs.get_smoke_config(arch)) == dataclasses.asdict(
             get_smoke_config(arch))
+
+
+def test_training_entry_points_raise_without_a_card():
+    """``run_training()``, ``build_model(..., trainable=True)`` and the
+    loader's default ``device_put`` default to the card and raise
+    without one; nothing trains on the CPU unless asked."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import ChunkLedger, PrefetchLoader, TokenChunkSource
+    from repro_torch.launch.train import run_training
+    from repro_torch.models import build_model
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_training()
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_training(arch="zamba2-1.2b", steps=1, batch=1, seq=31, device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_model(get_smoke_config("zamba2-1.2b"), trainable=True)
+    with pytest.raises(RuntimeError, match="cuda"):
+        PrefetchLoader(ChunkLedger(2), TokenChunkSource(16, 4, 1))

@@ -590,3 +590,227 @@ def test_cuda_smoke_model_matches_cpu_float32(arch):
     assert counts["flash_attention"] > 0 and counts["decode_attention"] > 0
     if arch == "zamba2-1.2b":
         assert counts["mamba2_chunk_scan"] > 0
+
+
+# --------------------------------------------------------------------------
+# backward kernels (training): quick loop `-k backward`
+# --------------------------------------------------------------------------
+
+# Each gradient against the plain backward on the same q, k, v, out, lse
+# and dout, rtol 0: an element is held to a fraction of the largest |value|
+# in its row of the plain result, and no row's bar drops below that
+# fraction of 2**-8 of the largest element of the three gradients (rows
+# near 0, such as causal dQ's row 0). Both sides sum in float32 and round
+# once: bfloat16 elements may be one ulp (2**-7 of the row's largest)
+# apart, and the bar is two ulps; float32 differs by summation order only.
+_BWD_FRAC = {torch.float32: 2.0 ** -12, torch.bfloat16: 2.0 ** -6}
+# The bf16 forward's lse sums P rounded to bfloat16 (each term within
+# 2**-9), so it lies within 2**-9 of the plain one.
+_LSE_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+            torch.bfloat16: dict(rtol=0.0, atol=2.0 ** -8)}
+
+
+def _assert_rows_close(got, want, frac, name):
+    peak = max(float(t.float().abs().max()) for t in want)
+    for n, gi, wi in zip(("dq", "dk", "dv"), got, want):
+        gi, wi = gi.float(), wi.float()
+        assert bool(gi.isfinite().all()) and bool(wi.isfinite().all()), f"{name} {n}"
+        scale = wi.abs().amax(-1, keepdim=True).clamp_min(2.0 ** -8 * peak)
+        over = (gi - wi).abs() / (frac * scale)
+        assert not bool((over > 1).any()), (
+            f"{name} {n}: {int((over > 1).sum())} elements beyond {frac:g} of their row's "
+            f"largest value, worst {float(over.max()):.3g} of its bar")
+
+
+def _flash_bwd_inputs(b, h, hkv, s, d, dtype, causal, dev, seed):
+    """q, k, v, out, lse (from the forward kernel) and a random dout."""
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = _qkv((b, h, s, d), (b, hkv, s, d), dtype, dev, np.random.default_rng(seed))
+    out, lse = FA.flash_attention_cuda(q, k, v, causal, return_lse=True)
+    dout = torch.as_tensor(np.random.default_rng(seed + 1).normal(0, 1, (b, h, s, d))
+                           .astype(np.float32), device=dev).to(dtype)
+    return q, k, v, out, lse, dout
+
+
+@pytest.mark.parametrize("s", [1, 63, 1000, 1024])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_flash_attention_backward(s, group, d, causal, dtype):
+    """dq, dk, dv of the backward kernel against the plain backward on the
+    same inputs, the forward's out and lse against the plain forward, and
+    (float32) the gradients against the plain backward of the plain
+    forward; in bfloat16 that would measure the forward's rounding of
+    out, which moves Dvec = rowsum(dO * O) and so whole rows of dS."""
+    from repro_torch.kernels import flash_attention as FA
+
+    dev = _cuda()
+    b, hkv = 1, 2
+    q, k, v, out, lse, dout = _flash_bwd_inputs(b, hkv * group, hkv, s, d, dtype, causal,
+                                                dev, seed=s + d + group)
+    want_out, want_lse = ref.flash_attention_fwd_ref(q, k, v, causal)
+    torch.testing.assert_close(out, want_out, **_TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, **_LSE_TOL[dtype])
+    ops.reset_launch_counts()
+    got = FA.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal)
+    assert ops.launch_counts()["flash_attention_bwd"] == FA.BWD_KERNELS
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        if name == "dv" or s > 1:  # one key: dS, so dq and dk, is 0 up to rounding
+            assert bool(g.any()), f"{name} all zero"
+    _assert_rows_close(got, want, _BWD_FRAC[dtype], "same inputs")
+    if dtype == torch.float32:
+        _assert_rows_close(got, ref.flash_attention_bwd_ref(q, k, v, want_out, want_lse,
+                                                            dout, causal),
+                           _BWD_FRAC[dtype], "end to end")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_flash_attention_backward_is_bit_equal_on_repeat(dtype):
+    """No atomics: each gradient element is summed by one thread in a
+    fixed order, so two calls give the same bits."""
+    from repro_torch.kernels import flash_attention as FA
+
+    dev = _cuda()
+    args = _flash_bwd_inputs(4, 32, 8, 1000, 64, dtype, True, dev, seed=3)
+    first = FA.flash_attention_bwd_cuda(*args, True)
+    second = FA.flash_attention_bwd_cuda(*args, True)
+    for g1, g2 in zip(first, second):
+        assert torch.equal(g1, g2)
+
+
+def test_cuda_flash_attention_backward_takes_non_contiguous_dout():
+    from repro_torch.kernels import flash_attention as FA
+
+    dev = _cuda()
+    q, k, v, out, lse, dout = _flash_bwd_inputs(1, 4, 2, 77, 64, torch.bfloat16, True, dev, 5)
+    strided = dout.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not strided.is_contiguous()
+    for g1, g2 in zip(FA.flash_attention_bwd_cuda(q, k, v, out, lse, strided, True),
+                      FA.flash_attention_bwd_cuda(q, k, v, out, lse, dout, True)):
+        assert torch.equal(g1, g2)
+
+
+def _directional_check(loss_fn, inputs, eps, rtol, seed):
+    """Central differences of ``loss_fn`` along a random direction of each
+    input against the autograd gradient's projection on it."""
+    rng = np.random.default_rng(seed)
+    inputs = [t.detach().clone().requires_grad_() for t in inputs]
+    grads = torch.autograd.grad(loss_fn(*inputs), inputs)
+    for i, (t, g) in enumerate(zip(inputs, grads)):
+        u = torch.as_tensor(rng.normal(0, 1, t.shape).astype(np.float32), device=t.device)
+        with torch.no_grad():
+            plus = [x + eps * u if j == i else x for j, x in enumerate(inputs)]
+            minus = [x - eps * u if j == i else x for j, x in enumerate(inputs)]
+            num = (loss_fn(*plus) - loss_fn(*minus)).double() / (2 * eps)
+        ana = (g.double() * u.double()).sum()
+        assert abs(float(num - ana)) <= rtol * max(abs(float(ana)), 1.0), (i, float(num),
+                                                                          float(ana))
+
+
+def test_cuda_flash_attention_gradient_finite_differences():
+    """float32, tiny: the autograd path (forward kernel with lse, backward
+    kernel) against central differences, GQA and causal."""
+    from repro_torch.kernels import flash_attention as FA
+
+    dev = _cuda()
+    q, k, v = _qkv((1, 4, 37, 32), (1, 2, 37, 32), torch.float32, dev, np.random.default_rng(9))
+    w = torch.as_tensor(np.random.default_rng(10).normal(0, 1, q.shape).astype(np.float32),
+                        device=dev)
+    ops.reset_launch_counts()
+    _directional_check(lambda q, k, v: (ops.flash_attention(q, k, v, True) * w).sum(),
+                       [q, k, v], eps=1e-2, rtol=2e-3, seed=11)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] > 0 and counts["flash_attention_bwd"] == FA.BWD_KERNELS
+
+
+def _scan_bwd_inputs(c, h, f, dtype, dev, seed):
+    rng = np.random.default_rng(seed)
+    decay = torch.as_tensor(rng.uniform(0.3, 1.0, (c, h)).astype(np.float32), device=dev)
+    mk = lambda *sh: torch.as_tensor(rng.normal(0, 1, sh).astype(np.float32),  # noqa: E731
+                                     device=dev).to(dtype)
+    states, _ = ref.mamba2_chunk_scan_ref(decay, mk(c, h, f))
+    return decay, states, mk(c, h, f), mk(h, f)
+
+
+@pytest.mark.parametrize("grads", ["both", "states_only", "final_only"])
+@pytest.mark.parametrize("c,h,f", [(8, 256, 4096), (3, 5, 7), (1, 16, 64), (16, 8, 20000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_mamba2_chunk_scan_backward(c, h, f, dtype, grads):
+    """g_inc equal to the plain backward (the same rounded multiply, then
+    add, on a float32 carry); g_decay within float32 summation order."""
+    from repro_torch.kernels import mamba2_scan as MS
+
+    dev = _cuda()
+    decay, states, g_states, g_final = _scan_bwd_inputs(c, h, f, dtype, dev, seed=c + h + f)
+    g_states = None if grads == "final_only" else g_states
+    g_final = None if grads == "states_only" else g_final
+    ops.reset_launch_counts()
+    got = MS.mamba2_chunk_scan_bwd_cuda(decay, states, g_states, g_final)
+    assert ops.launch_counts()["mamba2_chunk_scan_bwd"] == 1
+    want = ref.mamba2_chunk_scan_bwd_ref(decay, states, g_states, g_final)
+    assert got[0].dtype == torch.float32 and got[1].dtype == dtype
+    torch.testing.assert_close(got[1], want[1], rtol=0.0, atol=0.0)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-3)
+
+
+def test_cuda_mamba2_chunk_scan_backward_is_bit_equal_on_repeat():
+    from repro_torch.kernels import mamba2_scan as MS
+
+    dev = _cuda()
+    args = _scan_bwd_inputs(8, 256, 4096, torch.float32, dev, seed=1)
+    first, second = (MS.mamba2_chunk_scan_bwd_cuda(*args) for _ in range(2))
+    for g1, g2 in zip(first, second):
+        assert torch.equal(g1, g2)
+
+
+def test_cuda_mamba2_chunk_scan_gradient_finite_differences():
+    dev = _cuda()
+    rng = np.random.default_rng(4)
+    decay = torch.as_tensor(rng.uniform(0.3, 1.0, (6, 9)).astype(np.float32), device=dev)
+    inc = torch.as_tensor(rng.normal(0, 1, (6, 9, 33)).astype(np.float32), device=dev)
+    ws = torch.as_tensor(rng.normal(0, 1, (6, 9, 33)).astype(np.float32), device=dev)
+    wf = torch.as_tensor(rng.normal(0, 1, (9, 33)).astype(np.float32), device=dev)
+
+    def loss(decay, inc):
+        states, final = ops.mamba2_chunk_scan(decay, inc)
+        return (states * ws).sum() + (final * wf).sum()
+
+    ops.reset_launch_counts()
+    _directional_check(loss, [decay, inc], eps=1e-2, rtol=2e-3, seed=12)
+    counts = ops.launch_counts()
+    assert counts["mamba2_chunk_scan"] > 0 and counts["mamba2_chunk_scan_bwd"] == 1
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "qwen1.5-4b"])
+def test_cuda_smoke_train_gradients_match_cpu_float32(arch):
+    """One loss and gradient of a trainable smoke model in float32 on the
+    card (forward and backward kernels, remat) and on the CPU (plain
+    versions), same weights: loss at 1e-5, each gradient within 1e-3 of
+    its tensor's norm (float32, TF32 off; sums in another order)."""
+    import copy
+
+    dev = _cuda()
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.train import loss_and_grads
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch)
+    cpu = build_model(cfg, device="cpu", seed=0, trainable=True, act_dtype=torch.float32)
+    card = copy.deepcopy(cpu).to(dev)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 64)))
+    ops.reset_launch_counts()
+    lc, _, gc_ = loss_and_grads(cpu, {"tokens": toks})
+    lg, _, gg = loss_and_grads(card, {"tokens": toks.to(dev)})
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] > 0 and counts["flash_attention_bwd"] > 0
+    if arch == "zamba2-1.2b":
+        assert counts["mamba2_chunk_scan"] > 0 and counts["mamba2_chunk_scan_bwd"] > 0
+    np.testing.assert_allclose(float(lg), float(lc), rtol=1e-5)
+    for name, g in gc_.items():
+        err = float((gg[name].cpu() - g).abs().max())
+        assert err <= 1e-3 * max(float(g.norm()), 1e-6), (name, err)

@@ -118,6 +118,7 @@ def test_lm_ops_on_cpu_take_plain_version():
     assert set(ops.launch_counts()) == {
         "color_deconv", "morph_recon", "feature_fused", "sobel_stats",
         "flash_attention", "decode_attention", "mamba2_chunk_scan",
+        "flash_attention_bwd", "mamba2_chunk_scan_bwd",
     }
     assert sum(ops.launch_counts().values()) == 0
 
