@@ -8,8 +8,8 @@ name and power limit, then builds every kernel from ``csrc/*.cu`` (one
 ``nvcc`` per source, all at once) into ``build/torch_kernels/``, prints
 each kernel's registers and spills from ``ptxas``, and counts the
 tensor-core instructions (``HMMA``/``HGMMA``, from ``cuobjdump -sass``)
-of the bfloat16 flash_attention kernel for each head dim: it fails if
-that kernel spills or has none.
+of the bfloat16 flash_attention kernels for each head dim (forward,
+backward dQ and dK/dV): it fails if one spills or has none.
 
 Phase 1, kernels: each hand-written kernel against its plain PyTorch
 version on the card, at the shapes its main path gives it, with CUDA
@@ -86,9 +86,12 @@ later layers beyond 2e-2).
 Phase 1 also holds the two backward kernels of the training path to
 their plain backward versions: flash_attention at the training shape
 (B=4, H=32, S=1024, D=64, bf16, causal), a ragged S=1000, float32 and
-GQA (H=32, Hkv=8, D=128); mamba2_chunk_scan at C=8, H=4*64, F=64*64,
-float32. A repeated call must give the same bits; times as above, with
-SDPA's backward beside flash's.
+GQA (B=1, H=32, Hkv=8, D=128); mamba2_chunk_scan at C=8, H=4*64,
+F=64*64, float32. A repeated call must give the same bits; the bf16
+flash backward must launch ``bwd_kernels`` device kernels per call
+(profiler); times as above, with SDPA's backward beside flash's at the
+training and GQA shapes, itself held to the bf16 bar against the plain
+backward on its own out.
 
 Phase 7, the training path: ``run_training`` trains zamba2-1.2B at full
 width and depth (batch 4, seq 1023: 1024 tokens per row, 24 steps) from
@@ -255,30 +258,42 @@ def hmma_counts(lib: Path) -> dict:
 
 def flash_build_report(ptxas: dict) -> dict:
     """Registers, spills and tensor-core instruction count of the
-    bfloat16 flash_attention forward kernel for each head dim, in its
-    serving instantiation (``d32`` ...: no log-sum-exp store) and its
-    training one (``d32_lse`` ...); registers and spills of the backward
-    kernels (``bwd``). Fails on a spill of a forward kernel or on one
-    with no tensor-core instruction."""
+    bfloat16 flash_attention kernels for each head dim: the forward in
+    its serving instantiation (``d32`` ...: no log-sum-exp store) and its
+    training one (``d32_lse`` ...), and the backward's dQ and dK/dV
+    kernels (``bwd_dq_d32`` ...; dK/dV in its group-of-1 and its partial
+    instantiation, ``bwd_dkdv_d32`` and ``bwd_dkdv_d32_partial``);
+    registers and spills of the float32 backward (``bwd_f32``). Fails on a
+    spill of a bf16 kernel or on one with no tensor-core instruction."""
     from repro_torch.kernels import _build
 
     entries = ptxas_entries(ptxas["flash_attention"])
     sass = hmma_counts(_build._target("flash_attention"))
-    report = {}
+    wanted = {}
     for d in (32, 64, 128):
         for lse, suffix in ((0, ""), (1, "_lse")):
-            key = re.compile(rf"flash_bf16_kernelILi{d}ELi\d+ELb{lse}E")
-            found = [v for n, v in entries.items() if key.search(n)]
-            mma = [c for n, c in sass.items() if key.search(n)]
-            what = f"bf16 flash kernel D={d}{suffix}"
-            check(len(found) == 1 and len(mma) == 1,
-                  f"{what}: {len(found)} ptxas entries, {len(mma)} SASS functions")
-            report[f"d{d}{suffix}"] = dict(found[0], hmma=mma[0])
-            check(mma[0] > 0, f"{what} has no HMMA/HGMMA instruction")
-            check(found[0].get("spill_stores") == 0 and found[0].get("spill_loads") == 0,
-                  f"{what} spills: {found[0]}")
-    report["bwd"] = {re.search(r"(flash_bwd_\w+?_kernel)I(\w+?)(Li\d+E)?E", n).expand(
-        r"\1<\2\3>"): v for n, v in entries.items() if "flash_bwd_" in n}
+            wanted[f"d{d}{suffix}"] = (f"bf16 flash kernel D={d}{suffix}",
+                                       rf"flash_bf16_kernelILi{d}ELi\d+ELb{lse}E")
+        wanted[f"bwd_dq_d{d}"] = (f"bf16 flash backward dQ kernel D={d}",
+                                  rf"flash_bwd_dq_tc_kernelILi{d}ELi\d+ELb[01]EE")
+        for part, suffix in ((0, ""), (1, "_partial")):
+            wanted[f"bwd_dkdv_d{d}{suffix}"] = (
+                f"bf16 flash backward dK/dV kernel D={d}{suffix}",
+                rf"flash_bwd_dkdv_tc_kernelILi{d}ELi\d+ELb[01]ELb{part}EE")
+    report = {}
+    for name, (what, pattern) in wanted.items():
+        key = re.compile(pattern)
+        found = [v for n, v in entries.items() if key.search(n)]
+        mma = [c for n, c in sass.items() if key.search(n)]
+        check(len(found) == 1 and len(mma) == 1,
+              f"{what}: {len(found)} ptxas entries, {len(mma)} SASS functions")
+        report[name] = dict(found[0], hmma=mma[0])
+        check(mma[0] > 0, f"{what} has no HMMA/HGMMA instruction")
+        check(found[0].get("spill_stores") == 0 and found[0].get("spill_loads") == 0,
+              f"{what} spills: {found[0]}")
+    report["bwd_f32"] = {re.search(r"(flash_bwd_\w+?_kernel)I(\w+?)(Li\d+E)?E", n).expand(
+        r"\1<\2\3>"): v for n, v in entries.items()
+        if "flash_bwd_" in n and "_tc_" not in n and "_sum_" not in n}
     report["hmma_in_library"] = sum(sass.values())
     return report
 
@@ -1194,9 +1209,11 @@ def phase_backward_kernels() -> dict:
     lse_tol = {torch.bfloat16: (0.0, 2.0 ** -8), torch.float32: (2e-5, 2e-5)}
     # Backward against the plain backward on the same q, k, v, out, lse and
     # dout, rtol 0: each element within ``frac`` of the largest |value| in
-    # its row. Both sides sum in float32 and round once: bfloat16 elements
-    # may be one ulp (at most 2**-7 of the row's largest) apart, and the
-    # bar is two; float32 differs by summation order only. float32 is
+    # its row. bfloat16: both sides round once (one ulp, at most 2**-7 of
+    # the row's largest, apart) and the kernel rounds P and dS to bfloat16
+    # before its products (under 2**-7 more: derived and measured in
+    # tests/test_torch_flash_bwd_numerics.py), so the bar is two ulps;
+    # float32 differs by summation order only. float32 is
     # also held end to end, against the plain backward of the plain
     # forward's out and lse; in bfloat16 that would measure the forward's
     # rounding of out (one ulp of out moves Dvec = rowsum(dO * O), and so
@@ -1239,36 +1256,56 @@ def phase_backward_kernels() -> dict:
             + f"); {', '.join(note)}; bit-equal on repeat")
         return err, args
 
+    def sdpa_case(args, what):
+        """SDPA's backward on the same q, k, v and dout (its own forward:
+        ``enable_gqa`` for a group), held to the bar against the plain
+        backward on SDPA's out and the plain forward's lse, as the kernel
+        is on its own; returned for timing."""
+        q, k, v, _, _, dout, _ = args
+        qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                  enable_gqa=k.shape[1] != q.shape[1])
+        sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), dout,  # noqa: E731
+                                               retain_graph=True)
+        want = ref.flash_attention_bwd_ref(q, k, v, sdpa_out.detach(),
+                                           ref.flash_attention_fwd_ref(q, k, v, True)[1],
+                                           dout, True)
+        peak = max(float(w.abs().max()) for w in want)
+        errs = [row_err(g, w, fracs[torch.bfloat16], peak, f"sdpa backward {what} {n}")
+                for n, g, w in zip(("dq", "dk", "dv"), sdpa_bwd(), want)]
+        log(f"  sdpa backward {what} (yardstick): within the bf16 bar of the plain backward "
+            f"on its own out, max abs err dq, dk, dv {[float(f'{e:.3g}') for e in errs]}")
+        return sdpa_bwd
+
+    def kernel_record(b, h, hkv, s, d, err, args, sdpa_bwd):
+        fn = lambda: FA.flash_attention_bwd_cuda(*args)  # noqa: E731
+        per_call = device_kernels_per_call(fn)
+        want = FA.bwd_kernels(torch.bfloat16, h // hkv)
+        check(per_call == want, f"flash_attention backward H={h} Hkv={hkv}: {per_call:g} "
+              f"device kernels per call, not {want}")
+        elems, kv_elems, tri = b * h * s * d, b * hkv * s * d, b * h * s * (s + 1) / 2
+        # q, o, dout, dq (B, H, S, D), k, v, dk, dv (B, Hkv, S, D) and lse, once
+        nbytes = 2 * (4 * elems + 4 * kv_elems) + 4 * b * h * s
+        bms, by = bound(nbytes, 5 * 2.0 * tri * d, BF16_FLOPS)
+        return dict(shape=[b, h, hkv, s, d], max_abs_err=err, kernels_per_call=per_call,
+                    ms=time_ms(fn, 10, flush),
+                    plain_ms=time_ms(lambda: ref.flash_attention_bwd_ref(*args), 3, flush),
+                    bound_ms=bms, bound_by=by, library_ms=time_ms(sdpa_bwd, 10, flush))
+
     flash_case(2, 8, 2, 1000, 64, torch.bfloat16, "ragged")
     flash_case(2, 8, 8, 1000, 64, torch.float32, "float32")
-    err_gqa, args = flash_case(1, 32, 8, 1024, 128, torch.bfloat16, "GQA")
     b, h, hkv, s, d = 1, 32, 8, 1024, 128
-    gqa = dict(shape=[b, h, hkv, s, d], max_abs_err=err_gqa,
-               ms=time_ms(lambda: FA.flash_attention_bwd_cuda(*args), 10, flush),
-               plain_ms=time_ms(lambda: ref.flash_attention_bwd_ref(*args), 3, flush))
+    err, args = flash_case(b, h, hkv, s, d, torch.bfloat16, "GQA")
+    gqa = kernel_record(b, h, hkv, s, d, err, args, sdpa_case(args, "GQA"))
     del args
     b, h, s, d = 4, 32, 1024, 64
     err, args = flash_case(b, h, h, s, d, torch.bfloat16, "training shape")
-    q, k, v, out, lse, dout, _ = args
-    # SDPA's backward on the same inputs: the yardstick, unused by the port.
-    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-    sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), dout,  # noqa: E731
-                                           retain_graph=True)
-    sdpa_err = [float((g.float() - w.float()).abs().max()) for g, w in
-                zip(sdpa_bwd(), ref.flash_attention_bwd_ref(*args))]
-    log(f"  sdpa backward (yardstick, not checked): max abs err against the plain "
-        f"backward dq, dk, dv {[float(f'{e:.3g}') for e in sdpa_err]}")
-    elems, tri = b * h * s * d, b * h * s * (s + 1) / 2
-    nbytes = 2 * (3 * elems + 2 * elems) + 4 * b * h * s + 2 * 3 * elems
-    bms, by = bound(nbytes, 5 * 2.0 * tri * d, BF16_FLOPS)
     results["flash_attention_bwd"] = dict(
-        shape=[b, h, h, s, d], max_abs_err=err, kernels_per_call=FA.BWD_KERNELS,
-        ms=time_ms(lambda: FA.flash_attention_bwd_cuda(*args), 10, flush),
-        plain_ms=time_ms(lambda: ref.flash_attention_bwd_ref(*args), 3, flush),
-        bound_ms=bms, bound_by=by, library_ms=time_ms(sdpa_bwd, 10, flush),
+        kernel_record(b, h, h, s, d, err, args, sdpa_case(args, "training shape")),
         gqa_d128=gqa)
-    del args, q, k, v, out, lse, dout, qs, ks, vs, sdpa_out
+    del args
+    gc.collect()
+    torch.cuda.empty_cache()
 
     c, h, f = 8, 4 * 64, 64 * 64
     decay = gpu(rng.uniform(0.3, 1.0, (c, h)).astype(np.float32))

@@ -68,30 +68,57 @@
 // backward pass; serving passes no lse buffer and runs the bf16 kernel
 // instantiated without that store (the `LSE = false` template).
 //
-// Backward (`flash_bwd_*`, CUDA cores, float32 arithmetic for both
-// types; no TPU counterpart: the JAX package differentiates plain jnp).
+// Backward (no TPU counterpart: the JAX package differentiates plain jnp).
 // With P = exp(S * scale - lse) recomputed from q, k and the forward's
 // lse, Dvec = rowsum(dO * O):
 //   dV = P^T dO, dP = dO V^T, dS = P * (dP - Dvec),
 //   dQ = dS K * scale, dK = dS^T Q * scale,
-// causal mask and ragged tiles as in the forward (masked P is 0).
-// Three launches on the caller's stream: `flash_bwd_dvec_kernel` (one
-// warp per row), then `flash_bwd_dq_kernel` (one block per q block of 64
-// rows, walking the key tiles up to its diagonal) and
-// `flash_bwd_dkdv_kernel` (one block per key block of 64 rows and KV
-// head, walking every query head of its group and the q tiles from its
-// diagonal down). Each output element is summed by one thread in a
-// fixed order: no atomics, and repeated calls are bit-equal. GQA's sum
-// over the query heads sharing a KV head happens inside the dK/dV block.
-// Tiles sit in shared memory as float32 rows of D + 1 (an odd stride:
-// a thread's row-wise dot products read distinct banks).
+// causal mask and ragged tiles as in the forward (masked P is 0). Each
+// output element is summed in a fixed order by one thread, with no
+// atomics: repeated calls are bit-equal.
+//
+// bfloat16 (`flash_bwd_dq_tc_kernel`, `flash_bwd_dkdv_tc_kernel`, the
+// training path): seven products on `mma.sync.m16n8k16` (bf16 in,
+// float32 accumulate), with the forward's swizzled tiles, `cp.async`
+// ring and fragment layouts. Two kernels, each with one block of 4 warps
+// per 64-row block, recompute S and dP:
+// - dQ, per (q block, head, batch): each warp owns 16 query rows. Its
+//   prologue sums Dvec of its rows from O and dO (a quad of lanes per
+//   row) and stores it for the dK/dV kernel, which runs after it on the
+//   same stream. Q and dO are A fragments; 64-key K/V tiles stream
+//   through a two-stage ring. Per 32 keys: S = Q K^T and dP = dO V^T,
+//   P = exp2(S * scale * log2(e) - lse * log2(e)) in registers (masks
+//   only on the diagonal and ragged tiles, and 32-key steps wholly above
+//   a warp's diagonal skipped), dS = P (dP - Dvec) in the C fragments,
+//   rounded to bf16 and used as the A fragment of dQ += dS K (the C
+//   layout of m16n8 is the A layout of m16k16, as for the forward's
+//   P V), K's B fragments by `ldmatrix.trans` of the same tile.
+// - dK/dV, per (key block, query head, batch): each warp owns 16 keys;
+//   K and V are A fragments, and 64-row Q/dO tiles with their lse and
+//   Dvec stream through the ring, from the key block's diagonal down.
+//   Per 32 queries: S^T = K Q^T, dP^T = V dO^T, P^T and dS^T in
+//   registers (lse and Dvec read by column from shared memory), both
+//   rounded to bf16 as A fragments of dV += P^T dO and dK += dS^T Q.
+// - GQA: the dK/dV grid runs over query heads, so a group is split
+//   across blocks. With a group of 1 the block stores bf16 dK and dV;
+//   otherwise each stores its head's float32 partials (B, H, S, D) and
+//   `flash_bwd_dkdv_sum_kernel` sums each group in head order. Launches
+//   per call: 2 with a group of 1, else 3.
+// - Registers: D <= 64 holds Q/dO (dQ) and K/V (dK/dV) as fragments;
+//   D = 128 reads them from shared memory at each use (the dK and dV
+//   accumulators alone take 128 registers a thread).
+// float32 (`flash_bwd_*_kernel<float, D>`, for float32 callers): the
+// first backward's CUDA-core kernels, unchanged: `flash_bwd_dvec_kernel`
+// (one warp per row), `flash_bwd_dq_kernel` and `flash_bwd_dkdv_kernel`
+// (a block per key block and KV head, walking every query head of its
+// group); tiles in shared memory as float32 rows of D + 1. Three
+// launches per call.
 // Bound: at B=4, H=32, S=1024, D=64, bf16, causal, q, k, v, o, dO, lse
-// in and dQ, dK, dV out move 117.4 MB (0.035 ms at 3.35 TB/s); the five
-// products over the lower triangle (S and dP recomputed, dV, dK, dQ)
+// in and dQ, dK, dV out move 134.7 MB (0.0402 ms at 3.35 TB/s); the
+// five products over the lower triangle (S and dP once, dV, dK, dQ)
 // need 5 * 2 * B*H*S*(S+1)/2 * D = 43.0 GFLOP (0.0435 ms at 989 TFLOP/s
-// on the tensor cores): operations bound it. This first kernel runs
-// them on the CUDA cores (7 products, 67 TFLOP/s peak); a tensor-core
-// version is later work.
+// on the tensor cores): operations bound it. The kernels do 7 (S and
+// dP in both), 60.2 GFLOP.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -105,12 +132,8 @@ constexpr int THREADS = 256;
 constexpr float NEG = -1.0e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 template <int D>
 struct Smem {
@@ -610,7 +633,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, i
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// backward on the CUDA cores
+// float32 backward on the CUDA cores
 
 namespace bwd {
 
@@ -955,6 +978,449 @@ int dispatch(const void* q, const void* k, const void* v, const void* o, const v
 
 }  // namespace bwd
 
+// ---------------------------------------------------------------------------
+// bfloat16 backward on the tensor cores
+
+namespace tc {
+
+constexpr int NC = 32;  // columns of S (keys for dQ, queries for dK/dV) per step
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// A warp's 16 rows of a swizzled 64 x D tile as the A fragments of D / 16
+// k16 steps: loaded once into registers (REGS), or read from shared
+// memory at each use.
+template <int D, bool REGS>
+struct ARows {
+  unsigned r[REGS ? D / 16 : 1][4];
+  unsigned base, lane_off;  // the warp's rows in the tile; this lane's ldsm_offset
+  __device__ __forceinline__ void init(unsigned tile, int warp, int lane) {
+    base = tile + warp * 16 * D * 2;
+    lane_off = ldsm_offset<D>(lane & 15, lane >> 4);
+    if constexpr (REGS) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(r[kk], base + (lane_off ^ (kk << 5)));
+    }
+  }
+  __device__ __forceinline__ void get(int kk, unsigned (&a)[4]) const {
+    if constexpr (REGS) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[e] = r[kk][e];
+    } else {
+      ldsm_x4(a, base + (lane_off ^ (kk << 5)));
+    }
+  }
+};
+
+// c (16 x NC, float32) = A (16 x D) times rows [col0, col0 + NC) of a
+// swizzled tile, transposed. blane: this lane's ldsm_offset for B
+// fragments read as they lie (the forward's K in Q K^T).
+template <int D, bool REGS>
+__device__ __forceinline__ void mm_nt(float (&c)[NC / 8][4], const ARows<D, REGS>& a,
+                                      unsigned tile, unsigned blane, int col0) {
+#pragma unroll
+  for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+  const unsigned base = tile + col0 * D * 2;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    unsigned af[4];
+    a.get(kk, af);
+    const unsigned at = base + (blane ^ (kk << 5));  // d chunks 2kk, 2kk + 1
+#pragma unroll
+    for (int p = 0; p < NC / 16; ++p) {
+      unsigned bf[4];  // b0, b1 of column tile 2p, then of 2p + 1
+      ldsm_x4(bf, at + p * 16 * D * 2);
+      mma_bf16(c[2 * p], af, bf[0], bf[1]);
+      mma_bf16(c[2 * p + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc (16 x D) += A (16 x NC, bf16 fragments of NC / 16 k16 steps) times
+// rows [row0, row0 + NC) of a swizzled tile. tlane: this lane's
+// ldsm_offset for B fragments read by ldmatrix.trans (the forward's V).
+template <int D>
+__device__ __forceinline__ void mm_nn(float (&acc)[D / 8][4], const unsigned (&a)[NC / 16][4],
+                                      unsigned tile, unsigned tlane, int row0) {
+  const unsigned base = tile + row0 * D * 2;
+#pragma unroll
+  for (int p = 0; p < D / 16; ++p) {
+    const unsigned at = base + (tlane ^ (p << 5));  // d chunks 2p, 2p + 1
+#pragma unroll
+    for (int kk = 0; kk < NC / 16; ++kk) {
+      unsigned bf[4];  // b0, b1 of d tile 2p, then of 2p + 1
+      ldsm_x4_trans(bf, at + kk * 16 * D * 2);
+      mma_bf16(acc[2 * p], a[kk], bf[0], bf[1]);
+      mma_bf16(acc[2 * p + 1], a[kk], bf[2], bf[3]);
+    }
+  }
+}
+
+// The C fragments of 16 x NC as bf16 A fragments of NC / 16 k16 steps.
+__device__ __forceinline__ void to_afrags(unsigned (&a)[NC / 16][4], const float (&c)[NC / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < NC / 16; ++kk) {
+    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void zero(float (&acc)[D / 8][4]) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+}
+
+// This lane's ldmatrix offsets in a swizzled tile: B fragments read as
+// they lie, and read transposed (the forward's klane and vlane).
+template <int D>
+__device__ __forceinline__ unsigned blane_of(int lane) {
+  return ldsm_offset<D>((lane & 7) + ((lane >> 4) << 3), (lane >> 3) & 1);
+}
+template <int D>
+__device__ __forceinline__ unsigned tlane_of(int lane) {
+  return ldsm_offset<D>((lane & 7) + ((lane >> 3) & 1) * 8, lane >> 4);
+}
+
+template <int D>
+constexpr int bwd_smem_bytes() {  // two 64-row tiles held, two two-stage rings
+  return 6 * BQ * D * 2 + 2 * 2 * BQ * 4;  // + the dK/dV kernel's lse and Dvec ring
+}
+
+// One block per (head, batch, q block): dQ of 64 rows, and Dvec of them.
+template <int D, int MINB, bool REGS>
+__global__ void __launch_bounds__(THREADS, MINB)
+flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ o,
+                       const bf16* __restrict__ dout, const float* __restrict__ lse,
+                       float* __restrict__ dvec, bf16* __restrict__ dq, int H, int HKV, int S,
+                       float scale, int causal) {
+  constexpr int DT = D / 8, TILE = BK * D;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dOs = Qs + BQ * D;
+  bf16* Ks = dOs + BQ * D;   // two stages
+  bf16* Vs = Ks + 2 * TILE;  // two stages
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qb = gridDim.z - 1 - blockIdx.z;  // heaviest (causal) first
+  const int hk = h / (H / HKV);
+  const int q0 = qb * BQ;
+  const long long rows = (static_cast<long long>(b) * H + h) * S;
+  const long long qoff = rows * D;
+  const long long koff = (static_cast<long long>(b) * HKV + hk) * S * D;
+  const bf16* kp = k + koff;
+  const bf16* vp = v + koff;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + warp * 16;
+  const int kend = causal ? min(S, q0 + BQ) : S;
+  const int nkb = (kend + BK - 1) / BK;
+  const float scale_log2 = scale * LOG2E;
+
+  load_rows<BQ, D, THREADS>(Qs, q + qoff, q0, S, tid);
+  load_rows<BQ, D, THREADS>(dOs, dout + qoff, q0, S, tid);
+  load_rows<BK, D, THREADS>(Ks, kp, 0, S, tid);
+  load_rows<BK, D, THREADS>(Vs, vp, 0, S, tid);
+  cp_async_commit();
+
+  // Dvec and lse (log2 units) of rows g and g + 8: lane t of the quad
+  // sums a quarter of the row, then two shuffles (0 past S).
+  float dv[2], lse2[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + g + 8 * i;
+    float sum = 0.f;
+    if (row < S) {
+      const long long at = qoff + static_cast<long long>(row) * D + t * (D / 4);
+      const uint4* op = reinterpret_cast<const uint4*>(o + at);
+      const uint4* dp = reinterpret_cast<const uint4*>(dout + at);
+#pragma unroll
+      for (int c = 0; c < D / 32; ++c) {
+        const uint4 x = op[c], y = dp[c];
+        const unsigned xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 xf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xs[e]));
+          const float2 yf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ys[e]));
+          sum = fmaf(xf.x, yf.x, sum);
+          sum = fmaf(xf.y, yf.y, sum);
+        }
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    dv[i] = sum;
+    lse2[i] = row < S ? lse[rows + row] * LOG2E : 0.f;
+    if (t == 0 && row < S) dvec[rows + row] = sum;
+  }
+
+  const unsigned ks = smem_addr(Ks), vs = smem_addr(Vs);
+  const unsigned blane = blane_of<D>(lane), tlane = tlane_of<D>(lane);
+  ARows<D, REGS> qa, da;
+  float acc[DT][4];
+  zero<D>(acc);
+
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int st = kb & 1, k0 = kb * BK;
+    cp_async_wait<0>();  // block kb has landed
+    __syncthreads();     // ... for every thread, and block kb - 1 is consumed
+    if (kb == 0) {
+      qa.init(smem_addr(Qs), warp, lane);
+      da.init(smem_addr(dOs), warp, lane);
+    }
+    if (kb + 1 < nkb) {  // block kb + 1 into the stage of block kb - 1
+      load_rows<BK, D, THREADS>(Ks + (st ^ 1) * TILE, kp, k0 + BK, S, tid);
+      load_rows<BK, D, THREADS>(Vs + (st ^ 1) * TILE, vp, k0 + BK, S, tid);
+      cp_async_commit();
+    }
+    const unsigned kt = ks + st * TILE * 2, vt = vs + st * TILE * 2;
+    const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > row0);
+#pragma unroll
+    for (int c0 = 0; c0 < BK; c0 += NC) {
+      if (causal && k0 + c0 > row0 + 15) break;  // every key above the warp's diagonal
+      float s[NC / 8][4], dp[NC / 8][4];
+      mm_nt<D, REGS>(s, qa, kt, blane, c0);
+      mm_nt<D, REGS>(dp, da, vt, blane, c0);
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          float p = ex2(fmaf(s[j][e], scale_log2, -lse2[i]));
+          if (edge) {
+            const int col = k0 + c0 + j * 8 + 2 * t + (e & 1), row = row0 + g + 8 * i;
+            if (col >= S || (causal && col > row)) p = 0.f;
+          }
+          s[j][e] = p * (dp[j][e] - dv[i]);  // dS
+        }
+      unsigned dsa[NC / 16][4];
+      to_afrags(dsa, s);
+      mm_nn<D>(acc, dsa, kt, tlane, c0);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + g + 8 * i;
+    if (row >= S) continue;
+    bf16* qrow = dq + qoff + static_cast<long long>(row) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+      *reinterpret_cast<unsigned*>(qrow + j * 8) =
+          pack_bf16(acc[j][2 * i] * scale, acc[j][2 * i + 1] * scale);
+  }
+}
+
+// One block per (query head, batch, key block): dK and dV of 64 keys from
+// one query head. PARTIAL: float32 partials of the head (B, H, S, D),
+// unscaled, for flash_bwd_dkdv_sum_kernel; else bf16 dK and dV (a group
+// of 1).
+template <int D, int MINB, bool REGS, bool PARTIAL>
+__global__ void __launch_bounds__(THREADS, MINB)
+flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ dvec,
+                         void* __restrict__ dk, void* __restrict__ dv, int H, int HKV, int S,
+                         float scale, int causal) {
+  constexpr int DT = D / 8, TILE = BQ * D;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + BK * D;
+  bf16* Qs = Vs + BK * D;     // two stages
+  bf16* dOs = Qs + 2 * TILE;  // two stages
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * TILE);  // two stages of BQ
+  float* Dv = Ls + 2 * BQ;                              // two stages of BQ
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int kb = blockIdx.z;  // the first key blocks see the most q tiles (causal)
+  const int hk = h / (H / HKV);
+  const int k0 = kb * BK;
+  const long long rows = (static_cast<long long>(b) * H + h) * S;
+  const long long koff = (static_cast<long long>(b) * HKV + hk) * S * D;
+  const bf16* qp = q + rows * D;
+  const bf16* dp_ = dout + rows * D;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int key0 = k0 + warp * 16;  // the warp's first key
+  const int nqb = (S + BQ - 1) / BQ;
+  const int qstart = causal ? kb : 0;
+  const float scale_log2 = scale * LOG2E;
+
+  // q tile qb and its lse and Dvec into stage st (0 past S).
+  auto load_q = [&](int qb, int st) {
+    load_rows<BQ, D, THREADS>(Qs + st * TILE, qp, qb * BQ, S, tid);
+    load_rows<BQ, D, THREADS>(dOs + st * TILE, dp_, qb * BQ, S, tid);
+    const int r = tid & (BQ - 1), row = qb * BQ + r;
+    const float* src = (tid < BQ ? lse : dvec) + rows;
+    float* dst = (tid < BQ ? Ls : Dv) + st * BQ + r;
+    cp_async4(dst, row < S ? src + row : src, row < S ? 4 : 0);
+    cp_async_commit();
+  };
+  load_rows<BK, D, THREADS>(Ks, k + koff, k0, S, tid);
+  load_rows<BK, D, THREADS>(Vs, v + koff, k0, S, tid);
+  load_q(qstart, 0);
+
+  const unsigned qs = smem_addr(Qs), ds = smem_addr(dOs);
+  const unsigned blane = blane_of<D>(lane), tlane = tlane_of<D>(lane);
+  ARows<D, REGS> ka, va;
+  float adk[DT][4], adv[DT][4];
+  zero<D>(adk);
+  zero<D>(adv);
+
+  for (int qb = qstart; qb < nqb; ++qb) {
+    const int st = (qb - qstart) & 1, q0 = qb * BQ;
+    cp_async_wait<0>();  // tile qb (and K, V) has landed
+    __syncthreads();     // ... for every thread, and tile qb - 1 is consumed
+    if (qb == qstart) {
+      ka.init(smem_addr(Ks), warp, lane);
+      va.init(smem_addr(Vs), warp, lane);
+    }
+    if (qb + 1 < nqb) load_q(qb + 1, st ^ 1);
+    const unsigned qt = qs + st * TILE * 2, dt = ds + st * TILE * 2;
+    const float* ls = Ls + st * BQ;
+    const float* dvs = Dv + st * BQ;
+    const bool edge = q0 + BQ > S || (causal && q0 < key0 + 15);
+#pragma unroll
+    for (int c0 = 0; c0 < BQ; c0 += NC) {
+      if (causal && q0 + c0 + NC - 1 < key0) continue;  // every query before the warp's keys
+      float s[NC / 8][4], dpt[NC / 8][4];
+      mm_nt<D, REGS>(s, ka, qt, blane, c0);   // S^T
+      mm_nt<D, REGS>(dpt, va, dt, blane, c0);  // dP^T
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j) {
+        const int c = c0 + j * 8 + 2 * t;  // this lane's two query columns c, c + 1
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + c);
+        const float2 d2 = *reinterpret_cast<const float2*>(dvs + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lq = (e & 1) ? l2.y : l2.x, dq_ = (e & 1) ? d2.y : d2.x;
+          float p = ex2(fmaf(s[j][e], scale_log2, -lq * LOG2E));
+          if (edge) {
+            const int col = q0 + c + (e & 1), key = key0 + g + 8 * (e >> 1);
+            if (col >= S || (causal && col < key)) p = 0.f;
+          }
+          s[j][e] = p;                       // P^T
+          dpt[j][e] = p * (dpt[j][e] - dq_);  // dS^T
+        }
+      }
+      unsigned pa[NC / 16][4], dsa[NC / 16][4];
+      to_afrags(pa, s);
+      to_afrags(dsa, dpt);
+      mm_nn<D>(adv, pa, dt, tlane, c0);
+      mm_nn<D>(adk, dsa, qt, tlane, c0);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + g + 8 * i;
+    if (key >= S) continue;
+    const long long e = static_cast<long long>(key) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      if constexpr (PARTIAL) {
+        const long long at = rows * D + e + j * 8;
+        *reinterpret_cast<float2*>(static_cast<float*>(dk) + at) =
+            make_float2(adk[j][2 * i], adk[j][2 * i + 1]);
+        *reinterpret_cast<float2*>(static_cast<float*>(dv) + at) =
+            make_float2(adv[j][2 * i], adv[j][2 * i + 1]);
+      } else {
+        const long long at = koff + e + j * 8;
+        *reinterpret_cast<unsigned*>(static_cast<bf16*>(dk) + at) =
+            pack_bf16(adk[j][2 * i] * scale, adk[j][2 * i + 1] * scale);
+        *reinterpret_cast<unsigned*>(static_cast<bf16*>(dv) + at) =
+            pack_bf16(adv[j][2 * i], adv[j][2 * i + 1]);
+      }
+    }
+  }
+}
+
+// dk[b, hk] = scale * sum over g of dkp[b, hk * group + g], dv likewise
+// (no scale), in head order: 4 elements a thread.
+__global__ void __launch_bounds__(256)
+flash_bwd_dkdv_sum_kernel(const float* __restrict__ dkp, const float* __restrict__ dvp,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, long long head_elems,
+                          long long total, int group, float scale) {
+  const long long e = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
+  if (e >= total) return;
+  const long long src = (e / head_elems) * group * head_elems + e % head_elems;
+  float4 sk = *reinterpret_cast<const float4*>(dkp + src);
+  float4 sv = *reinterpret_cast<const float4*>(dvp + src);
+  for (int i = 1; i < group; ++i) {
+    const float4 a = *reinterpret_cast<const float4*>(dkp + src + i * head_elems);
+    const float4 c = *reinterpret_cast<const float4*>(dvp + src + i * head_elems);
+    sk.x += a.x; sk.y += a.y; sk.z += a.z; sk.w += a.w;
+    sv.x += c.x; sv.y += c.y; sv.z += c.z; sv.w += c.w;
+  }
+  *reinterpret_cast<uint2*>(dk + e) =
+      make_uint2(pack_bf16(sk.x * scale, sk.y * scale), pack_bf16(sk.z * scale, sk.w * scale));
+  *reinterpret_cast<uint2*>(dv + e) = make_uint2(pack_bf16(sv.x, sv.y), pack_bf16(sv.z, sv.w));
+}
+
+template <int D, int MINB, bool REGS>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* lse,
+               const void* dout, void* dvec, void* dq, void* dk, void* dv, void* dkp, void* dvp,
+               int B, int H, int HKV, int S, float scale, int causal, void* stream) {
+  constexpr int bytes = bwd_smem_bytes<D>();
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool partial = H != HKV;
+  auto dkdv = partial ? flash_bwd_dkdv_tc_kernel<D, MINB, REGS, true>
+                      : flash_bwd_dkdv_tc_kernel<D, MINB, REGS, false>;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<D, MINB, REGS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(H, B, (S + BQ - 1) / BQ);
+  flash_bwd_dq_tc_kernel<D, MINB, REGS><<<grid, THREADS, bytes, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o, (const bf16*)dout,
+      (const float*)lse, (float*)dvec, (bf16*)dq, H, HKV, S, scale, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dkdv<<<grid, THREADS, bytes, st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
+                                     (const bf16*)dout, (const float*)lse, (const float*)dvec,
+                                     partial ? dkp : dk, partial ? dvp : dv, H, HKV, S, scale,
+                                     causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !partial) return (int)err;
+  const long long head = static_cast<long long>(S) * D, total = head * B * HKV;
+  flash_bwd_dkdv_sum_kernel<<<(unsigned)((total / 4 + 255) / 256), 256, 0, st>>>(
+      (const float*)dkp, (const float*)dvp, (bf16*)dk, (bf16*)dv, head, total, H / HKV, scale);
+  return (int)cudaGetLastError();
+}
+
+// Blocks per SM and whether the A operands stay in registers, by head dim.
+int dispatch_bwd(const void* q, const void* k, const void* v, const void* o, const void* lse,
+                 const void* dout, void* dvec, void* dq, void* dk, void* dv, void* dkp,
+                 void* dvp, int B, int H, int HKV, int S, int D, float scale, int causal,
+                 void* stream) {
+  switch (D) {
+    case 32:
+      return launch_bwd<32, 2, true>(q, k, v, o, lse, dout, dvec, dq, dk, dv, dkp, dvp, B, H,
+                                     HKV, S, scale, causal, stream);
+    case 64:
+      return launch_bwd<64, 2, true>(q, k, v, o, lse, dout, dvec, dq, dk, dv, dkp, dvp, B, H,
+                                     HKV, S, scale, causal, stream);
+    case 128:
+      return launch_bwd<128, 1, false>(q, k, v, o, lse, dout, dvec, dq, dk, dv, dkp, dvp, B,
+                                       H, HKV, S, scale, causal, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // q (B, H, S, D), k/v (B, HKV, S, D), o (B, H, S, D), contiguous; D in
@@ -974,7 +1440,9 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
 
 // Backward: q, o, dout, dq (B, H, S, D); k, v, dk, dv (B, HKV, S, D); lse
 // (B, H, S) float32 from the forward; dvec (B, H, S) float32 scratch. All
-// contiguous, of one type but lse and dvec. Returns the CUDA error, or 0.
+// contiguous, of one type but lse and dvec. bf16 also takes dkp, dvp:
+// float32 (B, H, S, D) scratch when H > HKV, else null; its pointers are
+// 16-byte aligned. Returns the CUDA error, or 0.
 extern "C" int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                                        const void* o, const void* lse, const void* dout,
                                        void* dvec, void* dq, void* dk, void* dv, int B, int H,
@@ -986,9 +1454,9 @@ extern "C" int flash_attention_bwd_f32(const void* q, const void* k, const void*
 
 extern "C" int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                                         const void* o, const void* lse, const void* dout,
-                                        void* dvec, void* dq, void* dk, void* dv, int B, int H,
-                                        int HKV, int S, int D, float scale, int causal,
-                                        void* stream) {
-  return bwd::dispatch<__nv_bfloat16>(q, k, v, o, lse, dout, dvec, dq, dk, dv, B, H, HKV, S,
-                                      D, scale, causal, stream);
+                                        void* dvec, void* dq, void* dk, void* dv, void* dkp,
+                                        void* dvp, int B, int H, int HKV, int S, int D,
+                                        float scale, int causal, void* stream) {
+  return tc::dispatch_bwd(q, k, v, o, lse, dout, dvec, dq, dk, dv, dkp, dvp, B, H, HKV, S, D,
+                          scale, causal, stream);
 }
