@@ -9,7 +9,8 @@ name and power limit, then builds every kernel from ``csrc/*.cu`` (one
 each kernel's registers and spills from ``ptxas``, and counts the
 tensor-core instructions (``HMMA``/``HGMMA``, from ``cuobjdump -sass``)
 of the bfloat16 flash_attention kernels for each head dim (forward,
-backward dQ and dK/dV): it fails if one spills or has none.
+backward dQ and dK/dV): it fails if one spills or has none; and fails
+if an instantiation of the mamba2_chunk_scan backward spills.
 
 Phase 1, kernels: each hand-written kernel against its plain PyTorch
 version on the card, at the shapes its main path gives it, with CUDA
@@ -89,9 +90,11 @@ their plain backward versions: flash_attention at the training shape
 GQA (B=1, H=32, Hkv=8, D=128); mamba2_chunk_scan at C=8, H=4*64,
 F=64*64, float32. A repeated call must give the same bits; the bf16
 flash backward must launch ``bwd_kernels`` device kernels per call
-(profiler); times as above, with SDPA's backward beside flash's at the
-training and GQA shapes, itself held to the bf16 bar against the plain
-backward on its own out.
+(profiler), the scan backward one; times as above, with SDPA's backward
+beside flash's at the training and GQA shapes, itself held to the bf16
+bar against the plain backward on its own out, and beside the scan
+backward a PyTorch add of the same bytes, its plan and its time with L2
+flushed clean.
 
 Phase 7, the training path: ``run_training`` trains zamba2-1.2B at full
 width and depth (batch 4, seq 1023: 1024 tokens per row, 24 steps) from
@@ -295,6 +298,24 @@ def flash_build_report(ptxas: dict) -> dict:
         r"\1<\2\3>"): v for n, v in entries.items()
         if "flash_bwd_" in n and "_tc_" not in n and "_sum_" not in n}
     report["hmma_in_library"] = sum(sass.values())
+    return report
+
+
+def scan_bwd_build_report(ptxas: dict) -> dict:
+    """Registers and spills of each instantiation of the mamba2_chunk_scan
+    backward (float32 and bfloat16, 16-byte vectors and one element):
+    fails if one is missing or spills."""
+    entries = ptxas_entries(ptxas["mamba2_scan"])
+    report = {}
+    for t, tname, wide in (("f", "f32", 4), ("13__nv_bfloat16", "bf16", 8)):
+        for vec in (wide, 1):
+            key = re.compile(rf"mamba2_scan_bwd_kernelI{t}Li{vec}EE")
+            found = [v for n, v in entries.items() if key.search(n)]
+            what = f"mamba2_chunk_scan backward {tname} vec={vec}"
+            check(len(found) == 1, f"{what}: {len(found)} ptxas entries")
+            check(found[0].get("spill_stores") == 0 and found[0].get("spill_loads") == 0,
+                  f"{what} spills: {found[0]}")
+            report[f"{tname}_vec{vec}"] = found[0]
     return report
 
 
@@ -1188,7 +1209,11 @@ def phase_backward_kernels() -> dict:
     F=64*64, float32. Each must give the same bits on a repeated call;
     timed with CUDA events (median, L2 flushed) beside the bound, the
     plain version and, for attention, SDPA's backward on the same
-    inputs."""
+    inputs. The scan backward's row also has its plan (splits, vec, k,
+    threads), its device kernels per call (profiler; must be 1), its
+    time with L2 flushed clean, and ``bytes_yardstick_ms``: a PyTorch
+    add that reads two tensors of the states' size and writes one (no
+    PyTorch call computes the function, so ``library_ms`` is None)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1322,11 +1347,23 @@ def phase_backward_kernels() -> dict:
     # another order.
     err = max(max_err(got[1], want[1], 0.0, 0.0, "mamba2_chunk_scan backward g_inc"),
               max_err(got[0], want[0], 1e-4, 1e-3, "mamba2_chunk_scan backward g_decay"))
+    plan = MS.last_bwd_plan
+    fn = lambda: MS.mamba2_chunk_scan_bwd_cuda(*args)  # noqa: E731
+    per_call = device_kernels_per_call(fn)
+    check(per_call == 1, f"mamba2_chunk_scan backward: {per_call:g} device kernels per call, "
+          "not 1")
     bms, by = bound(4 * (c * h + 3 * c * h * f + h * f + c * h), 4.0 * c * h * f)
+    # No PyTorch call computes this function (library_ms None); the
+    # yardstick moves the same bytes: reads two (C, H, F) tensors, writes one.
+    buf = torch.empty_like(states)
+    clean = torch.ones(256 << 20, dtype=torch.uint8, device=dev).max
     results["mamba2_chunk_scan_bwd"] = dict(
-        max_abs_err=err, ms=time_ms(lambda: MS.mamba2_chunk_scan_bwd_cuda(*args), 50, flush),
+        max_abs_err=err, ms=time_ms(fn, 50, flush),
         plain_ms=time_ms(lambda: ref.mamba2_chunk_scan_bwd_ref(*args), 10, flush),
-        bound_ms=bms, bound_by=by, library_ms=None)
+        bound_ms=bms, bound_by=by, library_ms=None, shape=[c, h, f],
+        plan=dict(splits=plan.splits, vec=plan.vec, k=plan.k, threads=plan.threads),
+        kernels_per_call=per_call, ms_clean_l2=time_ms(fn, 50, clean),
+        bytes_yardstick_ms=time_ms(lambda: torch.add(states, g_states, out=buf), 50, flush))
     for name, res in results.items():
         log(f"  {name}: " + ", ".join(
             f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}" for k, v in res.items()))
@@ -1866,6 +1903,8 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
     flash_build = flash_build_report(ptxas)
     log("  bf16 flash_attention kernel (ptxas, cuobjdump -sass): " + json.dumps(flash_build))
+    scan_bwd_build = scan_bwd_build_report(ptxas)
+    log("  mamba2_chunk_scan backward (ptxas): " + json.dumps(scan_bwd_build))
 
     t0 = time.perf_counter()
     tiles = mosaic_tiles(N_TILES, TILE)
@@ -1879,6 +1918,7 @@ def main() -> int:
     kres.update(phase_lm_kernels())
     kres.update(phase_backward_kernels())
     kres["flash_attention"]["build"] = flash_build
+    kres["mamba2_chunk_scan_bwd"]["build"] = scan_bwd_build
     phase1_counts = K.launch_counts()
     log(f"phase 2: main path, {N_TILES} tiles of {TILE}x{TILE}, one gpu lane")
     runs = phase_main_path(tiles)
@@ -1925,7 +1965,7 @@ def main() -> int:
             **{k: v for k, v in res.items()
                if k in ("inputs", "gqa_d128", "gqa_long", "plan", "shape", "build",
                         "ms_clean_l2", "device_ms", "kernels_per_call", "copy_device_ms",
-                        "fused_op_vs_cpu")},
+                        "fused_op_vs_cpu", "bytes_yardstick_ms")},
         ))
         if name in ("flash_attention", "mamba2_chunk_scan"):
             records[-1]["launches_training"] = trained["launches"][name]

@@ -93,18 +93,19 @@ def interleaved(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 class Workspaces:
-    """Per (device, stream): an int32 counter zeroed when made (every
-    launch leaves it 0, and nothing else is stored there) and a float32
-    buffer of partial moments, grown when a plan needs more."""
+    """Per (device, stream): int32 counters zeroed when made (every
+    launch leaves them 0, and nothing else is stored there) and a
+    float32 buffer of partial sums, each grown when a plan needs more."""
 
     def __init__(self):
         self._by_key: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
-    def get(self, device: torch.device, stream: int, floats: int):
+    def get(self, device: torch.device, stream: int, floats: int, counters: int = 1):
         key = (device.index, stream)
         cnt, part = self._by_key.get(key, (None, None))
-        if cnt is None:
-            cnt = torch.zeros(1, dtype=torch.int32, device=device)
+        if cnt is None or cnt.numel() < counters:
+            cnt = torch.zeros(counters if cnt is None else max(counters, 2 * cnt.numel()),
+                              dtype=torch.int32, device=device)
         if part is None or part.numel() < floats:
             part = torch.empty(floats if part is None else max(floats, 2 * part.numel()),
                                dtype=torch.float32, device=device)

@@ -742,7 +742,8 @@ def _scan_bwd_inputs(c, h, f, dtype, dev, seed):
 
 
 @pytest.mark.parametrize("grads", ["both", "states_only", "final_only"])
-@pytest.mark.parametrize("c,h,f", [(8, 256, 4096), (3, 5, 7), (1, 16, 64), (16, 8, 20000)])
+@pytest.mark.parametrize("c,h,f", [(8, 256, 4096), (3, 5, 7), (1, 16, 64), (16, 8, 20000),
+                                   (6, 9, 33), (1, 8, 20000)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_mamba2_chunk_scan_backward(c, h, f, dtype, grads):
     """g_inc equal to the plain backward (the same rounded multiply, then
@@ -770,6 +771,49 @@ def test_cuda_mamba2_chunk_scan_backward_is_bit_equal_on_repeat():
     first, second = (MS.mamba2_chunk_scan_bwd_cuda(*args) for _ in range(2))
     for g1, g2 in zip(first, second):
         assert torch.equal(g1, g2)
+
+
+def test_cuda_mamba2_chunk_scan_backward_on_two_streams_is_bit_equal():
+    """Calls on two streams, one after the other, each bit-equal to a
+    call on the default stream: every launch leaves its stream's
+    counters at 0, so the next call's last block merges again."""
+    from repro_torch.kernels import mamba2_scan as MS
+
+    dev = _cuda()
+    args = _scan_bwd_inputs(8, 256, 4096, torch.float32, dev, seed=2)
+    want = MS.mamba2_chunk_scan_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    for stream in (torch.cuda.Stream(dev), torch.cuda.Stream(dev)):
+        with torch.cuda.stream(stream):
+            got = [MS.mamba2_chunk_scan_bwd_cuda(*args) for _ in range(2)]
+        stream.synchronize()
+        for g in got:
+            for a, b in zip(g, want):
+                assert torch.equal(a, b)
+    assert all(not cnt.any() for cnt, _ in MS._workspaces._by_key.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_mamba2_chunk_scan_backward_one_device_launch_per_call(dtype):
+    """g_decay merges inside the one launch (no zero-fill, no second
+    kernel): the profiler sees no device kernel but the backward's, at
+    most one per call, in the 16-byte-vector instantiation at the
+    training shape. (It drops a short kernel's record now and then,
+    never adds one: the count is held from above, the wrapper's from
+    both sides.)"""
+    from repro_torch.kernels import mamba2_scan as MS
+
+    dev = _cuda()
+    args = _scan_bwd_inputs(8, 256, 4096, dtype, dev, seed=3)
+    call = lambda: MS.mamba2_chunk_scan_bwd_cuda(*args)  # noqa: E731
+    call()  # builds the kernel, makes the workspace
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    names = _device_kernel_names(call, calls=10, tries=5)
+    assert ops.launch_counts()["mamba2_chunk_scan_bwd"] == 50
+    assert 0 < len(names) <= 10, names
+    assert all("mamba2_scan_bwd_kernel<" in n for n in names), names
+    assert MS.last_bwd_plan.vec == 16 // args[1].element_size()
 
 
 def test_cuda_mamba2_chunk_scan_gradient_finite_differences():
