@@ -67,6 +67,22 @@ relay's bytes, each worker's transport counters and peak RSS.
 Phase 3: one 256x256 tile through ``run_tile`` on the card and through
 the numpy path, at the bars of the reference's ``tests/test_app.py``.
 
+Phase 8 (run right after phase 3), the hybrid node: 4 tiles of
+1024x1024 (mosaics of phase 2's tile pool) with ``build_workflow()``
+(unfused) through the Manager (window 2) and one WorkerRuntime, three
+times: A with one ``gpu`` lane (PATS), B with a ``cpu`` lane beside
+the ``gpu`` lane (PATS), C as B under FCFS; locality on. Checks every
+stage done in each run, B and C each ran ops on both lanes, morph_recon
+and color_deconv launched in B, every tile's ``feat_*`` in B and C
+equal to A's (rtol 1e-3, atol 1e-4) with ``n_objects`` exact, and A's
+tile 0 equal to the numpy path (``n_objects``, mask agreement above
+0.999, ``feat_haralick`` at 1e-4/1e-5, every other ``feat_*`` at
+1e-3/1e-4). Prints each run's seconds, tiles/s, lane busy seconds and
+ops by lane, and per op (Fig 7 on this card) the numpy path's seconds
+on tile 0, the ``gpu`` lane's observed seconds in A
+(``FunctionVariant.expected_runtime``), their ratio beside the
+calibrated speedup, and the ``cpu`` lane's observed seconds in B and C.
+
 Phase 4, the serving path: ``serve_requests`` serves 8 requests (batch
 4, prompt 1024, 32 new tokens, cache 2048) of zamba2-1.2B at full width
 from seeded weights, after a short warm-up call. Checks every request
@@ -119,6 +135,7 @@ record and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import re
@@ -162,6 +179,13 @@ TRAIN = dict(arch="zamba2_1p2b", batch=4, seq=1023, steps=24, seed=0)
 #: its tensor's norm: a flip is float32 noise around a gradient near 0.
 FLIP_SHARE, FLIP_GRAD = 1e-5, 1e-7
 N_TILES, TILE, POOL_TILE = 8, 4096, 1024
+#: Phase 8, the hybrid node: 4 tiles of 1024x1024 (a host core's numpy
+#: pipeline takes seconds per op at this size and minutes at 4096x4096),
+#: run A (one gpu lane), B (a cpu and a gpu lane, PATS) and C (the same
+#: under FCFS); locality on, Manager window 2, unfused workflow.
+HYBRID_TILES, HYBRID_SIZE = 4, 1024
+HYBRID_RUNS = {"A": (("gpu",), "pats"), "B": (("cpu", "gpu"), "pats"),
+               "C": (("cpu", "gpu"), "fcfs")}
 #: The ops that run one ``ops.morph_recon`` reconstruction each, per tile.
 RECON_OPS = ("recon_to_nuclei", "fill_holes", "pre_watershed", "canny_edge")
 
@@ -184,16 +208,23 @@ def log(msg: str) -> None:
 # --------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
+def tile_pool(seed: int = 11) -> tuple:
+    """4 distinct ``synth_tile(i, size=POOL_TILE, seed=seed)`` tiles, made
+    once per run (phases 2 and 8 draw on the same pool)."""
+    from repro_torch.app.tiles import synth_tile
+
+    return tuple(synth_tile(i, size=POOL_TILE, seed=seed) for i in range(4))
+
+
 def mosaic_tiles(n: int, size: int, seed: int = 11):
-    """``n`` (size, size, 3) uint8 tiles, each a mosaic of a pool of 4
+    """``n`` (size, size, 3) uint8 tiles, each a mosaic of the pool of 4
     distinct ``synth_tile(i, size=POOL_TILE)`` tiles with seeded flips
     and rotations (a native large synth_tile draws a full-frame mask
     per nucleus and takes minutes on a host core)."""
     import numpy as np
 
-    from repro_torch.app.tiles import synth_tile
-
-    pool = [synth_tile(i, size=POOL_TILE, seed=seed) for i in range(4)]
+    pool = tile_pool(seed)
     rng = np.random.default_rng(seed)
     k = size // POOL_TILE
     tiles = []
@@ -902,24 +933,34 @@ def phase_lm_kernels() -> dict:
 # --------------------------------------------------------------------------
 
 
-def run_main_path(tiles, fused: bool) -> dict:
+def run_main_path(tiles, fused: bool, lanes: tuple[str, ...] = ("gpu",),
+                  policy: str = "pats", label: str | None = None, keep: tuple = ()) -> dict:
+    """The WSI workflow on ``tiles`` through a Manager (window 2) and one
+    WorkerRuntime with one lane of each kind in ``lanes`` (locality on,
+    ``policy``), the ``gpu`` variants on the card. Checks every stage
+    completed and every op ran on one of ``lanes``; returns each tile's
+    ``feat_*``, ``n_objects`` and the ``keep`` keys (on the host), the
+    kernels' launches (zeroed just before the run), the op profile per
+    lane kind, lane busy seconds and the variant registry."""
     import torch
 
     from repro_torch.app import build_workflow, register_variants
     from repro_torch.app import segmentation as S
+    from repro_torch.app._device import to_host
     from repro_torch.core import (
         ConcreteWorkflow, DataChunk, LaneSpec, Manager, ManagerConfig,
         VariantRegistry, WorkerRuntime,
     )
     from repro_torch.kernels import ops as K
 
+    tag = label or f"fused={fused}"
     reg = VariantRegistry()
     register_variants(reg, device="cuda")
     cw = ConcreteWorkflow.replicate(
         build_workflow(fused=fused),
         [DataChunk(i, payload=t) for i, t in enumerate(tiles)],
     )
-    rt = WorkerRuntime(0, lanes=(LaneSpec("gpu", 0),), policy="pats",
+    rt = WorkerRuntime(0, lanes=tuple(LaneSpec(kind, 0) for kind in lanes), policy=policy,
                        locality=True, variant_registry=reg)
     rt.start()
     try:
@@ -937,12 +978,12 @@ def run_main_path(tiles, fused: bool) -> dict:
         seconds = time.perf_counter() - t0
         counts = K.launch_counts()
         sweeps = dict(S.SWEEPS)
-        check(ok, f"fused={fused}: Manager.run did not finish: errors={rt.errors[:3]}")
+        check(ok, f"{tag}: Manager.run did not finish: errors={rt.errors[:3]}")
         done, total = mgr.progress()
-        check(done == total == 2 * len(tiles), f"fused={fused}: {done}/{total} stages")
+        check(done == total == 2 * len(tiles), f"{tag}: {done}/{total} stages")
         profile = rt.stats()["profile"]
-        off_lane = {op: k for op, k in profile.items() if set(k) != {"gpu"}}
-        check(not off_lane, f"fused={fused}: ops off the gpu lane: {off_lane}")
+        off_lane = {op: k for op, k in profile.items() if not set(k) <= set(lanes)}
+        check(not off_lane, f"{tag}: ops off the {'/'.join(lanes)} lanes: {off_lane}")
         feats: dict[int, dict] = {}
         for si in cw.stage_instances.values():
             if si.stage.name != "features":
@@ -950,9 +991,9 @@ def run_main_path(tiles, fused: bool) -> dict:
             out = mgr.stage_outputs(si.uid)
             for state in (out or {}).values():
                 d = feats.setdefault(si.chunk.chunk_id, {})
-                d.update({k: v for k, v in state.items()
-                          if k.startswith("feat_") or k == "n_objects"})
-        check(sorted(feats) == list(range(len(tiles))), f"fused={fused}: missing tiles")
+                d.update({k: to_host(v) for k, v in state.items()
+                          if k.startswith("feat_") or k == "n_objects" or k in keep})
+        check(sorted(feats) == list(range(len(tiles))), f"{tag}: missing tiles")
         return dict(
             seconds=seconds,
             tiles_per_s=len(tiles) / seconds,
@@ -962,6 +1003,7 @@ def run_main_path(tiles, fused: bool) -> dict:
             profile=profile,
             lane_busy=rt.stats()["lane_busy"],
             feats=feats,
+            registry=reg,
         )
     finally:
         rt.stop()
@@ -1199,6 +1241,111 @@ def phase_parity() -> None:
     np.testing.assert_allclose(s_acc["feat_pixel"], s_cpu["feat_pixel"],
                                rtol=1e-3, atol=1e-4)
     log(f"  256x256: n_objects={s_cpu['n_objects']} mask agreement={agree:.6f}")
+
+
+def check_close(got, want, rtol: float, atol: float, what: str) -> None:
+    import numpy as np
+
+    got, want = np.asarray(got), np.asarray(want)
+    check(got.shape == want.shape, f"{what}: shape {got.shape} != {want.shape}")
+    err = np.abs(got.astype(np.float64) - want.astype(np.float64))
+    bad = int((err > atol + rtol * np.abs(want.astype(np.float64))).sum())
+    check(bad == 0, f"{what}: {bad} elements beyond rtol {rtol} atol {atol}, "
+                    f"max abs err {float(err.max()) if err.size else 0.0:.3g}")
+
+
+# --------------------------------------------------------------------------
+# phase 8: the hybrid node, a cpu lane beside the gpu lane
+# --------------------------------------------------------------------------
+
+
+def numpy_op_seconds(tile) -> tuple[dict, dict]:
+    """``run_tile(tile, "cpu")`` (the numpy path), timed op by op: the
+    final state and each op's host seconds."""
+    from repro_torch.app.pipeline import OP_IMPLS, _SEG_ORDER
+    from repro_torch.core.calibration import PARALLEL_FEATURE_OPS
+
+    state, seconds = tile, {}
+    for name in _SEG_ORDER + ("color_deconv",) + tuple(PARALLEL_FEATURE_OPS):
+        t0 = time.perf_counter()
+        state = OP_IMPLS[name][0](state)
+        seconds[name] = time.perf_counter() - t0
+    return state, seconds
+
+
+def phase_hybrid() -> dict:
+    """Runs A, B and C of ``HYBRID_RUNS`` on the same tiles, then tile 0
+    through the numpy path. Checks every stage done in each run; B and C
+    each ran ops on both lanes; morph_recon and color_deconv launched in
+    B; B's and C's features equal A's per tile; A's tile 0 equal to the
+    numpy path at phase 3's bars. Returns each run's numbers and, per
+    op, Fig 7 on this card: the variants' observed seconds on each lane
+    kind (``FunctionVariant.expected_runtime``) beside the numpy path's
+    seconds on tile 0 and the calibrated speedup."""
+    import numpy as np
+
+    from repro_torch.core.calibration import OP_PROFILES
+
+    t_phase = time.perf_counter()
+    tiles = mosaic_tiles(HYBRID_TILES, HYBRID_SIZE)
+    runs = {}
+    for name, (lanes, policy) in HYBRID_RUNS.items():
+        res = run_main_path(tiles, fused=False, lanes=lanes, policy=policy,
+                            label=f"phase 8 {name}", keep=("mask",))
+        runs[name] = res
+        log(f"  {name} ({'+'.join(lanes)}, {policy}): {res['seconds']:.4f} s, "
+            f"{res['tiles_per_s']:.4f} tiles/s, lane busy "
+            f"{ {k: round(v, 4) for k, v in res['lane_busy'].items()} }, "
+            f"launches {res['launches']}, ops by lane {json.dumps(res['profile'], sort_keys=True)}")
+    for name in ("B", "C"):
+        kinds = {kind for k in runs[name]["profile"].values() for kind in k}
+        check(kinds == {"cpu", "gpu"}, f"phase 8 {name}: ops ran on {sorted(kinds)} lanes only")
+    for kernel in ("morph_recon", "color_deconv"):
+        check(runs["B"]["launches"][kernel] > 0, f"phase 8 B launched no {kernel} kernel")
+    want = runs["A"]["feats"]
+    for name in ("B", "C"):
+        for cid, got in runs[name]["feats"].items():
+            check(got["n_objects"] == want[cid]["n_objects"],
+                  f"phase 8 {name}: tile {cid} n_objects {got['n_objects']} "
+                  f"!= A's {want[cid]['n_objects']}")
+            for key in FEAT_KEYS:
+                check_close(got[key], want[cid][key], 1e-3, 1e-4,
+                            f"phase 8 {name}: tile {cid} {key} against A's")
+    t0 = time.perf_counter()
+    s_cpu, cpu_s = numpy_op_seconds(tiles[0])
+    numpy_s = time.perf_counter() - t0
+    a0 = want[0]
+    check(s_cpu["n_objects"] == a0["n_objects"],
+          f"phase 8: tile 0 n_objects numpy {s_cpu['n_objects']} != card {a0['n_objects']}")
+    agree = float((np.asarray(s_cpu["mask"]) == a0["mask"]).mean())
+    check(agree > 0.999, f"phase 8: tile 0 mask agreement {agree}")
+    for key in FEAT_KEYS:
+        tol = (1e-4, 1e-5) if key == "feat_haralick" else (1e-3, 1e-4)
+        check_close(a0[key], s_cpu[key], *tol, f"phase 8: tile 0 {key}, card against numpy")
+    log(f"  tile 0, A against numpy ({numpy_s:.2f} s): n_objects {a0['n_objects']}, "
+        f"mask agreement {agree:.6f}, every feat_* within its bar")
+    fig7 = {}
+    for op, numpy_op_s in cpu_s.items():
+        gpu_s = runs["A"]["registry"].get(op).expected_runtime("gpu")
+        lane_cpu = {r: runs[r]["registry"].get(op).expected_runtime("cpu") for r in ("B", "C")}
+        fig7[op] = dict(
+            numpy_s=numpy_op_s, gpu_s=gpu_s,
+            ratio=numpy_op_s / gpu_s if gpu_s else None,
+            cpu_lane_s={r: v for r, v in lane_cpu.items() if v is not None},
+            calibrated=OP_PROFILES[op].gpu_speedup,
+        )
+    log(f"  Fig 7 at {HYBRID_SIZE}x{HYBRID_SIZE}: the numpy path's seconds on tile 0 over A's "
+        "observed gpu-lane seconds (EMA), the calibrated speedup, and the cpu lane's observed "
+        "seconds in B and C where it ran the op:")
+    for op, r in fig7.items():
+        log(f"    {op}: numpy {r['numpy_s']:.6g} s, gpu {r['gpu_s']:.6g} s, ratio "
+            f"{r['ratio']:.6g}x (calibrated {r['calibrated']}x), cpu lane "
+            + json.dumps({k: float(f"{v:.6g}") for k, v in r["cpu_lane_s"].items()}))
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 8: {seconds:.1f} s")
+    for res in runs.values():
+        del res["registry"], res["feats"]
+    return dict(runs=runs, fig7=fig7, numpy_s=numpy_s, mask_agreement=agree, seconds=seconds)
 
 
 def phase_backward_kernels() -> dict:
@@ -1928,6 +2075,9 @@ def main() -> int:
     log_processes(procs, runs[True])
     log("phase 3: 256x256 tile, card vs numpy")
     phase_parity()
+    log(f"phase 8: hybrid node, {HYBRID_TILES} tiles of {HYBRID_SIZE}x{HYBRID_SIZE}, "
+        f"runs {HYBRID_RUNS}")
+    hybrid = phase_hybrid()
     del tiles
     gc.collect()
     log(f"phase 4: serving {SERVE['arch']} at full width: {SERVE}")
@@ -1969,6 +2119,8 @@ def main() -> int:
         ))
         if name in ("flash_attention", "mamba2_chunk_scan"):
             records[-1]["launches_training"] = trained["launches"][name]
+        if name in ("color_deconv", "morph_recon"):
+            records[-1]["launches_hybrid"] = hybrid["runs"]["B"]["launches"][name]
         if PATHS[name] == "training":
             records[-1]["tpu_counterpart"] = None  # a backward kernel: the TPU had none
     log("kernels " + "; ".join(

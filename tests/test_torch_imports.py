@@ -1,5 +1,6 @@
 """The port stands alone: no module under ``src/repro_torch`` (nor
-``chip_smoke.py``) imports JAX or the JAX package, the copied runtime
+``chip_smoke.py``, the port's examples and its paper-figure bench)
+imports JAX or the JAX package, the copied runtime
 modules are byte-identical to their originals, and the entry points
 that default to the card raise where there is none."""
 
@@ -16,12 +17,17 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 REF = ROOT / "src" / "repro"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_SCRIPTS = [
+    *(ROOT / "examples" / f"{m}_torch.py" for m in ("quickstart", "wsi_cluster", "serve_lm")),
+    ROOT / "benchmarks" / "torch_paper_figs.py",
+]
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", *PORT_SCRIPTS]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 COPIED = [
     *(f"core/{m}.py" for m in ("workflow", "variants", "calibration", "cost_model",
-                               "scheduling", "worker", "manager")),
+                               "scheduling", "worker", "manager", "simulator",
+                               "network")),
     *(f"staging/{p.name}" for p in sorted((REF / "staging").glob("*.py"))),
     *(f"telemetry/{m}.py" for m in ("metrics", "tracing", "export", "recorder")),
     *(f"transport/{m}.py" for m in ("bus", "inproc", "socketbus", "endpoint")),
@@ -62,7 +68,11 @@ def test_import_with_jax_blocked():
         "import repro_torch.launch.serve, repro_torch.launch.costs_h100\n"
         "import repro_torch.optim, repro_torch.data, repro_torch.ckpt\n"
         "import repro_torch.launch.train\n"
+        "import repro_torch.core.simulator, repro_torch.core.network\n"
         "import chip_smoke\n"
+        "import runpy\n"
+        f"for p in {[str(p) for p in PORT_SCRIPTS]!r}:\n"
+        "    runpy.run_path(p, run_name='imported')\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and"
         " (m == 'repro' or m.startswith(('repro.', 'jax')))]\n"
         "assert not bad, bad\n"
@@ -135,6 +145,19 @@ def test_lm_entry_points_raise_without_a_card():
         build_model(get_smoke_config("zamba2-1.2b"), device="cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         build_model(get_smoke_config("qwen1.5-4b"))
+
+
+@pytest.mark.parametrize("script", ["quickstart_torch.py", "serve_lm_torch.py"])
+def test_examples_raise_without_a_card(script):
+    """With no ``--device`` the examples run on the card, and without one
+    they raise instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    out = subprocess.run([sys.executable, str(ROOT / "examples" / script)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "RuntimeError: device 'cuda' requested" in out.stderr
+    assert "completed" not in out.stdout and "requests ->" not in out.stdout
 
 
 def test_configs_match_reference():
