@@ -73,7 +73,8 @@ def serve_requests(
     seed: int = 0,
     device="cuda",
 ) -> dict:
-    """Serve ``n_requests`` seeded random prompts. Returns the
+    """Serve ``n_requests`` seeded random prompts of token ids (every
+    family whose input is tokens: dense, moe, hybrid, ssm). Returns the
     reference's dict (``requests``, ``tokens``, ``tokens_per_s``,
     ``wall_s``, ``steps``, ``mean_ttft_s``, ``pats_estimates``) plus
     ``mean_decode_step_s`` and ``device``."""
@@ -81,6 +82,10 @@ def serve_requests(
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if prompt_len + max_new > max_len:
         raise ValueError(f"prompt_len {prompt_len} + max_new {max_new} > max_len {max_len}")
+    if cfg.frontend != "none":
+        raise ValueError(f"{cfg.name} reads precomputed embeddings, and serve_requests "
+                         f"builds token prompts (as the reference's does): serve it through "
+                         f"Model.prefill and Model.decode_step")
     model = build_model(cfg, device=dev, seed=seed)
     serve_step = make_serve_step(model)
     prefill = make_prefill_step(model, max_len)

@@ -1,5 +1,6 @@
-"""LM model zoo of the port: configs, planning, and the ``dense`` and
-``hybrid`` families on the port's attention and scan kernels."""
+"""LM model zoo of the port: configs, planning, and every family of
+``repro.models`` (dense, moe, hybrid, ssm, audio, vlm) on the port's
+attention and scan kernels."""
 
 from .config import ArchConfig, reduced
 from .convert import params_from_jax

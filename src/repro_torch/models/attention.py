@@ -13,11 +13,30 @@ Prefill and training go through :func:`repro_torch.kernels.ops.flash_attention`
 writes the new K/V row in place at ``lengths`` and calls
 :func:`repro_torch.kernels.ops.decode_attention` over the ``lengths + 1``
 valid positions (the reference attends to positions ``<= lengths``).
-Only the bfloat16 cache; the reference's ``attention_options``
-(``causal_skip``, the int8 ``kv_quant`` cache) are not ported yet.
+
+Cross-attention (the encoder-decoder's ``kv_override``) has a query
+length other than the encoder's, which neither the TPU kernel nor the
+port's flash kernel takes; the reference computes it in plain ``jnp``,
+and so does :func:`cross_attention` here, with torch products and a
+float32 softmax.
+
+:class:`attention_options` carries the reference's two options:
+
+* ``kv_quant``: caches made by :func:`init_kv_cache` hold int8 rows with
+  one float32 scale each; a decode step quantises the new row, dequantises
+  the cache to float32 and runs the decode kernel in float32. The
+  reference's ``prefill`` returns bfloat16 caches all the same, so only a
+  decode chain that starts from empty caches reaches this path.
+* ``causal_skip``: the reference's triangular kv-block loop, which skips
+  blocks past the diagonal. The flash kernel already ends each query
+  block's loop at its last unmasked key block, and the plain version's
+  masked product gives the same numbers, so the option changes nothing
+  on either device.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -30,10 +49,39 @@ __all__ = [
     "init_attention",
     "attention_train",
     "attention_decode",
+    "attention_options",
+    "cross_attention",
     "cross_kv",
     "init_kv_cache",
     "attended_length",
 ]
+
+#: Options set by :class:`attention_options`.
+_CAUSAL_SKIP = False   # skip fully-masked kv blocks: the kernels always do
+_KV_QUANT = False      # int8 KV cache with per-row scales
+
+
+class attention_options:
+    """Context manager for the reference's attention options
+    (``causal_skip``, ``kv_quant``); ``None`` leaves an option as it is."""
+
+    def __init__(self, causal_skip: bool | None = None, kv_quant: bool | None = None):
+        self.causal_skip = causal_skip
+        self.kv_quant = kv_quant
+
+    def __enter__(self):
+        global _CAUSAL_SKIP, _KV_QUANT
+        self._prev = (_CAUSAL_SKIP, _KV_QUANT)
+        if self.causal_skip is not None:
+            _CAUSAL_SKIP = self.causal_skip
+        if self.kv_quant is not None:
+            _KV_QUANT = self.kv_quant
+        return self
+
+    def __exit__(self, *exc):
+        global _CAUSAL_SKIP, _KV_QUANT
+        _CAUSAL_SKIP, _KV_QUANT = self._prev
+        return False
 
 
 def init_attention(gen: torch.Generator, cfg: ArchConfig, plan: AttentionPlan,
@@ -100,18 +148,34 @@ def attention_train(p, x: torch.Tensor, cfg: ArchConfig, *, causal: bool = True,
     """Full-sequence attention (training / prefill). x: (B, S, D).
 
     With ``return_kv`` also returns the (B, slots, S, hd) K (after RoPE)
-    and V that a decode cache keeps."""
+    and V that a decode cache keeps. With ``kv_override`` (cross-attention
+    of the encoder-decoder) the queries attend to the given K/V through
+    :func:`cross_attention`; as in the reference, they are rotated at
+    positions ``0..S-1`` and ``causal`` is not read."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)
     q, k, v = _project_qkv(p, x, positions, cfg.rope_theta)
     if kv_override is not None:  # cross-attention (enc-dec)
         k, v = kv_override
-    _, slots, g, _, hd = q.shape
-    out = ops.flash_attention(q.reshape(b, slots * g, s, hd).contiguous(),
-                              k.contiguous(), v.contiguous(), causal)
-    y = _out_proj(p, out.view(b, slots, g, s, hd))
+        y = _out_proj(p, cross_attention(q, k, v))
+    else:
+        _, slots, g, _, hd = q.shape
+        out = ops.flash_attention(q.reshape(b, slots * g, s, hd).contiguous(),
+                                  k.contiguous(), v.contiguous(), causal)
+        y = _out_proj(p, out.view(b, slots, g, s, hd))
     return (y, k, v) if return_kv else y
+
+
+def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Full attention of q (B, slots, g, Sq, hd) over k/v (B, slots, Skv,
+    hd), any Sq and Skv: the products and the softmax in float32 (the
+    reference's ``_chunked_attn`` without a mask, in one block) ->
+    (B, slots, g, Sq, hd) in q's type."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bkgqh,bkch->bkgqc", q.float(), k.float()) * scale
+    out = torch.einsum("bkgqc,bkch->bkgqh", torch.softmax(s, dim=-1), v.float())
+    return out.to(q.dtype)
 
 
 def cross_kv(p, enc: torch.Tensor):
@@ -129,9 +193,24 @@ def cross_kv(p, enc: torch.Tensor):
 
 def init_kv_cache(batch: int, max_len: int, plan: AttentionPlan,
                   device=None, dtype=COMPUTE_DTYPE) -> dict[str, torch.Tensor]:
+    """Empty K/V caches in ``dtype``; under ``attention_options(kv_quant=True)``
+    int8 rows ``k_q``/``v_q`` with float32 scales ``k_s``/``v_s``."""
     shape = (batch, plan.slots, max_len, plan.head_dim)
+    if _KV_QUANT:
+        sshape = (batch, plan.slots, max_len, 1)
+        return {"k_q": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_s": torch.zeros(sshape, device=device),
+                "v_q": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v_s": torch.zeros(sshape, device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _quant_rows(x: torch.Tensor):
+    """x: (B, slots, hd) -> (int8 rows, (B, slots, 1) float32 scales)."""
+    x = x.float()
+    scale = x.abs().amax(dim=-1, keepdim=True) / 127.0 + 1e-12
+    return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8), scale
 
 
 def attended_length(lengths: torch.Tensor) -> torch.Tensor:
@@ -146,8 +225,9 @@ def attention_decode(p, x: torch.Tensor, cache: dict[str, torch.Tensor],
     """Single-step decode: write the new K/V row at each sequence's
     length (in place), attend to the valid prefix.
 
-    x: (B, 1, D); cache {"k","v"}: (B, slots, Smax, hd); lengths: (B,)
-    int32 tokens already in the cache. Returns (y (B, 1, D), cache)."""
+    x: (B, 1, D); cache {"k","v"}: (B, slots, Smax, hd) (or the int8
+    ``k_q``/``k_s``/``v_q``/``v_s``); lengths: (B,) int32 tokens already
+    in the cache. Returns (y (B, 1, D), cache)."""
     b = x.shape[0]
     # RoPE at each sequence's own position, which broadcasts differently
     # against q (B,slots,g,1,hd) and k (B,slots,1,hd): applied here.
@@ -157,10 +237,20 @@ def attention_decode(p, x: torch.Tensor, cache: dict[str, torch.Tensor],
         k = apply_rope(k, lengths[:, None, None], cfg.rope_theta)
     bidx = torch.arange(b, device=x.device)
     lidx = lengths.long()
-    cache["k"][bidx, :, lidx, :] = k[:, :, 0, :].to(cache["k"].dtype)
-    cache["v"][bidx, :, lidx, :] = v[:, :, 0, :].to(cache["v"].dtype)
     _, slots, g, _, hd = q.shape
-    out = ops.decode_attention(q.reshape(b, slots * g, hd).contiguous(),
-                               cache["k"], cache["v"],
-                               attended_length(lengths).to(torch.int32))
+    q = q.reshape(b, slots * g, hd)
+    if "k_q" in cache:  # int8 cache (attention_options): attend in float32
+        for name, row in (("k", k[:, :, 0, :]), ("v", v[:, :, 0, :])):
+            rows, scales = _quant_rows(row)
+            cache[f"{name}_q"][bidx, :, lidx, :] = rows
+            cache[f"{name}_s"][bidx, :, lidx, :] = scales
+        kc = cache["k_q"].float() * cache["k_s"]
+        vc = cache["v_q"].float() * cache["v_s"]
+        q = q.float()
+    else:
+        cache["k"][bidx, :, lidx, :] = k[:, :, 0, :].to(cache["k"].dtype)
+        cache["v"][bidx, :, lidx, :] = v[:, :, 0, :].to(cache["v"].dtype)
+        kc, vc = cache["k"], cache["v"]
+    out = ops.decode_attention(q.contiguous(), kc, vc,
+                               attended_length(lengths).to(torch.int32)).to(x.dtype)
     return _out_proj(p, out.view(b, slots, g, 1, hd)), cache

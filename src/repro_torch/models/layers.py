@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 __all__ = [
     "Params",
+    "stored",
     "dense_init",
     "embed_init",
     "rmsnorm",
@@ -65,11 +66,9 @@ class Params(nn.Module):
             self.add_module(key, Params(value, self.trainable))
         elif isinstance(value, (list, tuple)):
             self.add_module(key, nn.ModuleList(Params(v, self.trainable) for v in value))
-        elif self.trainable:
-            self.register_parameter(key, nn.Parameter(value.float(), requires_grad=True))
         else:
-            t = value.to(COMPUTE_DTYPE) if key in BF16_WEIGHTS else value.float()
-            self.register_parameter(key, nn.Parameter(t, requires_grad=False))
+            self.register_parameter(key, nn.Parameter(stored(key, value, self.trainable),
+                                                      requires_grad=self.trainable))
 
     def __getitem__(self, key: str):
         if key in self._parameters:
@@ -82,15 +81,26 @@ class Params(nn.Module):
         return key in self._parameters or key in self._modules
 
 
+def stored(key: str, value: torch.Tensor, trainable: bool) -> torch.Tensor:
+    """How :class:`Params` stores the leaf ``key``: a float32 master when
+    ``trainable``; else bfloat16 where the name is in
+    :data:`BF16_WEIGHTS`, float32 otherwise. ``build_model`` applies it
+    to each tensor as it is drawn, so that a whole float32 tree never
+    exists beside the stored one."""
+    if not trainable and key in BF16_WEIGHTS:
+        return value.to(COMPUTE_DTYPE)
+    return value.float()
+
+
 def dense_init(gen: torch.Generator, shape, fan_in: int | None = None,
                device=None) -> torch.Tensor:
     fan = fan_in if fan_in is not None else shape[0]
     scale = 1.0 / math.sqrt(max(fan, 1))
-    return torch.randn(shape, generator=gen, device=device) * scale
+    return torch.randn(shape, generator=gen, device=device).mul_(scale)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, device=None) -> torch.Tensor:
-    return torch.randn((vocab, d), generator=gen, device=device) * 0.02
+    return torch.randn((vocab, d), generator=gen, device=device).mul_(0.02)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -15,7 +15,7 @@ import torch.nn.functional as F
 from ..app._device import resolve_device
 from . import transformer as T
 from .config import ArchConfig
-from .layers import COMPUTE_DTYPE, Params
+from .layers import COMPUTE_DTYPE, Params, stored
 from .plan import ShardingPlan, make_plan
 
 __all__ = ["Model", "build_model"]
@@ -79,11 +79,13 @@ def build_model(cfg: ArchConfig, plan: ShardingPlan | None = None, *,
     or from a new generator seeded with ``seed``. ``trainable=True``
     keeps them as float32 masters that take gradients, with activations
     in ``act_dtype``; otherwise frozen, bfloat16 where the reference
-    casts (serving)."""
+    casts (serving), each tensor cast as soon as it is drawn."""
     dev = resolve_device(device)
     gen = generator if generator is not None else torch.Generator(dev).manual_seed(seed)
     plan = plan or make_plan(cfg)
     if plan.tp != 1:
-        raise NotImplementedError("the port runs tp=1 only (sharding is a later slice)")
-    return Model(cfg, plan, T.init_model_params(gen, cfg, plan, dev), trainable,
-                 act_dtype if trainable else None)
+        raise NotImplementedError("the port runs tp=1 only (sharding: ROADMAP.md, open items, "
+                                  "queue 1, item 6)")
+    tree = T.init_model_params(gen, cfg, plan, dev,
+                               store=lambda name, t: stored(name, t, trainable))
+    return Model(cfg, plan, tree, trainable, act_dtype if trainable else None)

@@ -22,6 +22,7 @@ from typing import Any, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..models import transformer as T
 from ..models.model import Model
 
 __all__ = ["TrainState", "make_train_step", "loss_and_grads", "make_serve_step",
@@ -34,9 +35,16 @@ class TrainState(NamedTuple):
 
 
 def train_loss(model: Model, batch: dict, remat: bool = True):
-    """The reference train step's loss: -> (loss, {"nll", "aux"})."""
+    """The reference train step's loss: -> (loss, {"nll", "aux"}). A
+    batch of embeddings only (vlm) is scored against token 0, as the
+    reference's proxy labels."""
     logits, aux = model.train_forward(batch, remat=remat)
-    labels, lg = batch["tokens"][:, 1:], logits[:, :-1]
+    lg = logits[:, :-1]
+    tokens = batch.get("tokens")
+    if tokens is not None and tokens.dim() == 2:
+        labels = tokens[:, 1:]
+    else:
+        labels = torch.zeros(lg.shape[:2], dtype=torch.long, device=lg.device)
     logp = F.log_softmax(lg, dim=-1)
     nll = -logp.gather(-1, labels.long()[..., None])[..., 0]
     return nll.mean() + 0.01 * aux, {"nll": nll.mean().detach(), "aux": aux.detach()}
@@ -44,11 +52,17 @@ def train_loss(model: Model, batch: dict, remat: bool = True):
 
 def loss_and_grads(model: Model, batch: dict, remat: bool = True):
     """-> (loss, metrics, {name: float32 gradient}) for every parameter
-    of ``model``."""
-    names, params = zip(*model.named_parameters())
+    of ``model``: 0 for the leaves the forward never reads
+    (``unread_in_training``); every other parameter must reach the loss
+    (autograd raises otherwise)."""
+    named = dict(model.named_parameters())
+    unread = T.unread_in_training(model.cfg)
+    read = [n for n in named if n.rsplit(".", 1)[-1] not in unread]
     loss, metrics = train_loss(model, batch, remat)
-    grads = torch.autograd.grad(loss, params)
-    return loss.detach(), metrics, {n: g.float() for n, g in zip(names, grads)}
+    grads = dict(zip(read, torch.autograd.grad(loss, [named[n] for n in read])))
+    return loss.detach(), metrics, {
+        n: grads[n].float() if n in grads else torch.zeros_like(t, dtype=torch.float32)
+        for n, t in named.items()}
 
 
 def make_train_step(model: Model, optimizer, *, microbatches: int = 1, remat: bool = True):

@@ -196,3 +196,10 @@ def test_training_entry_points_raise_without_a_card():
         build_model(get_smoke_config("zamba2-1.2b"), trainable=True)
     with pytest.raises(RuntimeError, match="cuda"):
         PrefetchLoader(ChunkLedger(2), TokenChunkSource(16, 4, 1))
+
+
+def test_every_model_module_is_checked():
+    """The model zoo's modules, the MoE and xLSTM ones included, are among
+    the sources checked for JAX and ``repro`` imports."""
+    for name in ("attention", "moe", "xlstm", "transformer", "convert", "model"):
+        assert PORT / "models" / f"{name}.py" in SOURCES, name

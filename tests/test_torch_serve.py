@@ -1,6 +1,7 @@
 """The port's serving driver (``repro_torch.launch.serve``) on the CPU,
 at smoke sizes: the reference's batcher answers every request with
-``max_new`` tokens, and the PATS estimates come from an H100 lane."""
+``max_new`` tokens for every token-input family (dense, moe, hybrid,
+ssm), and the PATS estimates come from an H100 lane."""
 
 import pytest
 
@@ -9,7 +10,8 @@ from repro_torch.launch import serve
 from repro_torch.launch.costs_h100 import H100_SXM
 
 
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "qwen1.5-4b"])
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "qwen1.5-4b", "dbrx-132b", "arctic-480b",
+                                  "xlstm-125m"])
 def test_serve_requests_answers_every_request(arch):
     out = serve.serve_requests(arch=arch, smoke=True, n_requests=5, batch_size=2,
                                prompt_len=16, max_new=4, max_len=32, device="cpu")
@@ -34,6 +36,15 @@ def test_serve_is_deterministic_per_seed():
 def test_serve_rejects_a_cache_too_short():
     with pytest.raises(ValueError, match="max_len"):
         serve.serve_requests(prompt_len=30, max_new=8, max_len=32, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "pixtral-12b"])
+def test_serve_rejects_an_embedding_frontend(arch):
+    """audio and vlm read precomputed embeddings; the batcher builds token
+    prompts, as the reference's (``Model.prefill`` serves them)."""
+    with pytest.raises(ValueError, match="embeddings"):
+        serve.serve_requests(arch=arch, n_requests=2, batch_size=2, prompt_len=8,
+                             max_new=2, max_len=16, device="cpu")
 
 
 def test_pats_estimates_use_the_h100_lane():

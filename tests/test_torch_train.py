@@ -8,14 +8,21 @@ across by ``params_from_jax``. Bars and their reasons:
 * optimizers on the same trees: AdamW's arithmetic op by op (1e-6 on
   the update); the int8 quantizers exactly, except where one rounding
   of ``x / scale`` lands on the other side of .5 (one code);
-* one train step of smoke zamba2 and smoke qwen1.5, float32 activations
-  on both sides (``reference_in_float32``): loss 1e-5 relative, every
+* one train step of a smoke model of every family (zamba2, qwen1.5,
+  dbrx, arctic, xLSTM, whisper, pixtral; the MoE balance loss included),
+  float32 activations on both sides (``reference_in_float32``): loss and
+  aux 1e-5 relative, every
   gradient within 1e-4 of its tensor's norm, every updated parameter
   within 2e-6 plus what the two gradients' float32 difference can move
   Adam's first step, ``lr * g / (|g| + eps)`` (large only for elements
   whose gradient is near ``eps`` or differs in sign);
-* five bfloat16 steps: the loss curves within 2e-2 (bfloat16 rounds in
-  other places in the two frameworks, see ``test_torch_models.py``).
+* five bfloat16 steps of smoke zamba2 and qwen1.5: the loss curves
+  within 2e-2 (bfloat16 rounds in other places in the two frameworks,
+  see ``test_torch_models.py``). Not for MoE and xLSTM, whose bfloat16
+  training amplifies those roundings: a one-ulp difference can move a
+  token's top-k choice or capacity rank (a step change in its output),
+  and xLSTM's exponential gates compound it over the sequence; their
+  five-step curves part by more than 2e-2 (float32, above, holds them).
 """
 
 import functools
@@ -229,8 +236,9 @@ def test_compress_int8_matches_reference(vals):
 # one train step against repro.train.make_train_step
 # --------------------------------------------------------------------------
 
-ARCHS = ["zamba2-1.2b", "qwen1.5-4b"]
-B, S = 2, 33  # 33 tokens: 32 predicted, one SSD chunk of 33
+ARCHS = ["zamba2-1.2b", "qwen1.5-4b", "dbrx-132b", "arctic-480b", "xlstm-125m",
+         "whisper-small", "pixtral-12b"]
+B, S = 2, 33  # 33 tokens: 32 predicted, one SSD (and mLSTM) chunk of 33
 
 
 @functools.lru_cache(maxsize=None)
@@ -243,6 +251,28 @@ def _reference(arch):
     return model, tree, toks
 
 
+@functools.lru_cache(maxsize=None)
+def _embeds(arch, batch=B):
+    """Seeded frontend-stub embeddings of a batch (``tests/test_models.py``'s
+    inputs): whisper's encoder frames, pixtral's patches and text; None
+    for a token-only family."""
+    cfg = jax_smoke_config(arch)
+    n = cfg.encoder_frames if cfg.family == "audio" else S
+    if cfg.frontend == "none":
+        return None
+    return np.random.default_rng(12).normal(size=(batch, n, cfg.d_model)).astype(np.float32)
+
+
+def _batch(cfg, toks, embeds, convert):
+    """The train batch: token ids (the labels), plus the frontend stub's
+    embeddings where the family reads them; ``convert`` makes each array a
+    JAX or torch input."""
+    out = {"tokens": convert(toks)}
+    if embeds is not None:
+        out["embeds"] = convert(embeds)
+    return out
+
+
 def _port(arch, tree, act_dtype):
     cfg = get_smoke_config(arch)
     model = build_model(cfg, device="cpu", seed=3, trainable=True, act_dtype=act_dtype)
@@ -250,26 +280,28 @@ def _port(arch, tree, act_dtype):
     return model
 
 
-def _jax_step(model, tree, toks, lr, steps=1):
+def _jax_step(model, tree, toks, lr, steps=1, embeds=None):
     params = jax.tree.map(jnp.asarray, tree)
     opt = JaxAdamW(lr=lr)
     step = jax.jit(jax_make_train_step(model, opt))
     state = JaxTrainState(params, opt.init(params))
     losses = []
     for i in range(steps):
-        state, metrics = step(state, {"tokens": jnp.asarray(toks[i % len(toks)])})
+        state, metrics = step(state, _batch(model.cfg, toks[i % len(toks)], embeds, jnp.asarray))
         losses.append(float(metrics["loss"]))
     return state, losses
 
 
-def _port_step(model, toks, lr, steps=1, microbatches=1):
+def _port_step(model, toks, lr, steps=1, microbatches=1, embeds=None):
     opt = AdamW(lr=lr)
     params = dict(model.named_parameters())
     state = TrainState(params, opt.init(params))
     step = make_train_step(model, opt, microbatches=microbatches)
     losses = []
     for i in range(steps):
-        state, metrics = step(state, {"tokens": torch.as_tensor(toks[i % len(toks)]).long()})
+        batch = _batch(model.cfg, torch.as_tensor(toks[i % len(toks)]).long(), embeds,
+                       torch.as_tensor)
+        state, metrics = step(state, batch)
         losses.append(float(metrics["loss"]))
     return state, losses
 
@@ -280,13 +312,15 @@ def test_train_step_matches_reference_float32(arch, reference_in_float32):
     cfg = get_smoke_config(arch)
     model = _port(arch, tree, torch.float32)
     params = jax.tree.map(jnp.asarray, tree)
-    batch = {"tokens": jnp.asarray(toks)}
-    (jloss, _), jgrads = jax.value_and_grad(
-        lambda p: jmodel.loss_fn(p, batch), has_aux=True)(params)
-    tloss, tmetrics, tgrads = loss_and_grads(model, {"tokens": torch.as_tensor(toks).long()})
+    embeds = _embeds(arch)
+    batch = _batch(cfg, toks, embeds, jnp.asarray)
+    tbatch = _batch(cfg, torch.as_tensor(toks).long(), embeds, torch.as_tensor)
+    (jloss, jmetrics), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jmodel.loss_fn(p, batch), has_aux=True))(params)
+    tloss, tmetrics, tgrads = loss_and_grads(model, tbatch)
     np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
-    np.testing.assert_allclose(float(model.loss_fn({"tokens": torch.as_tensor(toks).long()})[0].detach()),
-                               float(jloss), rtol=1e-5)
+    np.testing.assert_allclose(float(model.loss_fn(tbatch)[0].detach()), float(jloss), rtol=1e-5)
+    np.testing.assert_allclose(float(tmetrics["aux"]), float(jmetrics["aux"]), rtol=1e-5)
     want = params_from_jax(jax.tree.map(np.asarray, jgrads), cfg)
     assert set(want) == set(tgrads)
     for name, w in want.items():
@@ -296,8 +330,8 @@ def test_train_step_matches_reference_float32(arch, reference_in_float32):
         assert float((g - w).abs().max()) <= bar, (name, float((g - w).abs().max()), bar)
 
     lr = 1e-3
-    jstate, jl = _jax_step(jmodel, tree, toks[None], lr)
-    tstate, tl = _port_step(model, toks[None], lr)
+    jstate, jl = _jax_step(jmodel, tree, toks[None], lr, embeds=embeds)
+    tstate, tl = _port_step(model, toks[None], lr, embeds=embeds)
     np.testing.assert_allclose(tl, jl, rtol=1e-5)
     # Adam's first step moves an element by lr * u(g), u(g) = g / (|g| + eps),
     # g the clipped gradient, which the first moment holds as (1 - b1) g: two
@@ -320,13 +354,19 @@ def test_train_step_matches_reference_float32(arch, reference_in_float32):
     assert int(tstate.opt.step) == 1
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+#: Families whose five bfloat16 steps are held to the reference's (see the
+#: module docstring for MoE and xLSTM).
+BF16_CURVE_ARCHS = ["zamba2-1.2b", "qwen1.5-4b"]
+
+
+@pytest.mark.parametrize("arch", BF16_CURVE_ARCHS)
 def test_train_loss_curve_bfloat16_matches_reference(arch):
     jmodel, tree, _ = _reference(arch)
     cfg = get_smoke_config(arch)
     toks = np.random.default_rng(8).integers(0, cfg.vocab_size, (1, B, S)).astype(np.int32)
-    _, jl = _jax_step(jmodel, tree, toks, 1e-3, steps=5)
-    _, tl = _port_step(_port(arch, tree, torch.bfloat16), toks, 1e-3, steps=5)
+    _, jl = _jax_step(jmodel, tree, toks, 1e-3, steps=5, embeds=_embeds(arch))
+    _, tl = _port_step(_port(arch, tree, torch.bfloat16), toks, 1e-3, steps=5,
+                       embeds=_embeds(arch))
     np.testing.assert_allclose(tl, jl, rtol=2e-2, atol=2e-2)
     assert tl[-1] < tl[0]
 
@@ -337,8 +377,10 @@ def test_microbatches_match_full_batch(arch):
     ``test_microbatch_grad_accumulation_matches_full_batch`` bar)."""
     _, tree, _ = _reference(arch)
     toks = np.random.default_rng(9).integers(0, 512, (1, 4, S)).astype(np.int32)
-    s1, l1 = _port_step(_port(arch, tree, torch.bfloat16), toks, 1e-3)
-    s2, l2 = _port_step(_port(arch, tree, torch.bfloat16), toks, 1e-3, microbatches=2)
+    embeds = _embeds(arch, 4)
+    s1, l1 = _port_step(_port(arch, tree, torch.bfloat16), toks, 1e-3, embeds=embeds)
+    s2, l2 = _port_step(_port(arch, tree, torch.bfloat16), toks, 1e-3, microbatches=2,
+                        embeds=embeds)
     np.testing.assert_allclose(l2, l1, rtol=1e-2)
     d = max(float((s1.params[k] - s2.params[k]).abs().max()) for k in s1.params)
     assert d < 5e-3
@@ -369,14 +411,18 @@ def test_trainable_model_keeps_float32_masters_and_serving_stays_frozen():
 
 
 def test_unported_families_raise_in_training():
-    from repro_torch.models import transformer as T
-
-    cfg = get_smoke_config("qwen1.5-4b")
-    model = build_model(cfg, device="cpu", trainable=True)
-    for fam in ("moe", "ssm", "audio", "vlm"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-            T.train_forward(model, {"tokens": torch.zeros((1, 4), dtype=torch.long)},
-                            cfg.__class__(**{**cfg.__dict__, "family": fam}))
+    """The MoE balance loss reaches training: ``train_forward`` of a smoke
+    moe model (4 layers, each with its loss) returns a positive aux, and
+    ``loss_fn`` adds ``aux_weight * aux`` to the NLL."""
+    cfg = get_smoke_config("dbrx-132b")
+    model = build_model(cfg, device="cpu", trainable=True, act_dtype=torch.float32)
+    toks = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 16)))
+    _, aux = model.train_forward({"tokens": toks})
+    assert aux.dtype == torch.float32 and float(aux) > 0
+    for w in (0.0, 0.01, 0.5):
+        loss, parts = model.loss_fn({"tokens": toks}, aux_weight=w)
+        np.testing.assert_allclose(float(loss), float(parts["nll"]) + w * float(aux), rtol=1e-6)
+        np.testing.assert_allclose(float(parts["aux"]), float(aux), rtol=1e-6)
 
 
 def test_loss_fn_masks_negative_labels():
