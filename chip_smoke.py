@@ -158,6 +158,31 @@ causal), and each family's decode over its cache (bf16, ragged
 lengths); and decode_attention in float32 at Hq=32/Hkv=8, D=128 (the
 int8 cache's launch).
 
+Phase 10 (after 9), the launchers beyond one card
+(``launch/{mesh,sharding,spmd,elastic}.py``), as spawned ranks that share
+this one card over ``gloo`` (``nccl`` refuses two ranks on one device;
+every collective of a CUDA tensor is staged through pinned host memory
+and its bytes counted; which gloo collectives take CUDA tensors is
+probed and printed). Two ranks: (b) qwen1.5-4b at its published widths
+cut to 2 layers, one float32 step on mesh (data 1, model 2) against one
+step on a single rank at phase 7b's bars; (c) ``make_compressed_dp_grads``
+on (2, 1), the first step's gradients within one int8 step of a plain
+version of the reference's arithmetic and within what it allows of the
+exact mean, then the loss falling over 4 steps; (d) the bf16 model of (a)
+served on (1, 2): prefill 4 x 1024, 16 greedy steps, 10 KV slots a rank,
+and at 2 layers in float32 the greedy tokens of one rank (teacher-forced);
+(a) qwen1.5-4b trained on (1, 2) at the largest depth whose state fits
+the card (``dist_layers``, at least 8 of 40), float32 masters, bf16
+activations, AdamW (cosine), remat, batch 4 x 1024, 12 steps: loss finite
+and falling, flash forward and backward launched in each rank; step
+seconds, tokens/s, peak GiB a rank, collective and staged bytes a step.
+Four ranks: (e) smoke qwen1.5 on (2, 2) for 3 steps, ``reshard_state``
+onto (1, 2), 3 more, against a single rank's 6 steps at 2e-3. Phase 1
+also checks and times flash (forward and backward) and decode_attention
+at the shapes one rank launches (``rank_shapes``). Two ranks on one card
+measure correctness and the cost of the collectives on one card, not
+scaling across cards.
+
 Any failed check exits non-zero. The last lines are a JSON ``kernels``
 record and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -887,6 +912,21 @@ def family_shapes() -> tuple[dict, dict]:
     return flash, decode
 
 
+def rank_shapes() -> tuple[dict, dict]:
+    """The flash_attention and decode_attention shapes one rank of phase
+    10 launches: ``DIST``'s model on its model axis of 2 (its heads split
+    over the ranks), the training and serving prefill (B, H, Hkv, S, D,
+    causal) and the last decode step over the rank's cache."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(DIST["arch"])
+    h, hkv = cfg.n_heads // 2, cfg.n_kv_heads // 2
+    d, b, n = cfg.resolved_head_dim, DIST["batch"], DIST["seq"]
+    m = DIST_SERVE["prompt"] + DIST_SERVE["steps"]
+    key = f"{DIST['arch']} tp2 rank"
+    return {key: (b, h, hkv, n, d, True)}, {key: (DIST_SERVE["batch"], h, hkv, m, d, [m] * b)}
+
+
 def flash_family_records(flush, gpu, normal, bf16_tol, shapes: dict) -> dict:
     """flash_attention (bfloat16) at ``shapes`` (phase 9's), against
     the plain version at the serving forward's bar, timed beside it and
@@ -998,8 +1038,9 @@ def phase_lm_kernels() -> dict:
         bound_ms=bms, bound_by=by, library_ms=time_ms(sdpa, 20, flush))
     del want
     fam_flash, fam_decode = family_shapes()
+    rank_flash, rank_decode = rank_shapes()
     results["flash_attention"].update(flash_family_records(flush, gpu, normal, bf16_tol,
-                                                           fam_flash))
+                                                           {**fam_flash, **rank_flash}))
 
     # decode_attention: GQA check, then the decode shapes (ragged lengths).
     q = gpu(normal(3, 8, 64))
@@ -1008,7 +1049,7 @@ def phase_lm_kernels() -> dict:
     e = max_err(DA.decode_attention_cuda(q, k, v, lens), ref.decode_attention_ref(q, k, v, lens),
                 3e-5, 3e-5, "decode_attention GQA")
     log(f"  decode_attention GQA Hq=8 Hkv=2 S=777 float32: max abs err {e:.3g}")
-    recs = decode_records(flush, {**DECODE_SHAPES, **fam_decode})
+    recs = decode_records(flush, {**DECODE_SHAPES, **fam_decode, **rank_decode})
     results["decode_attention"] = dict(recs.pop("main"), **recs)
 
     # mamba2_chunk_scan: rounded multiply, then add, as the plain version.
@@ -1570,11 +1611,15 @@ def phase_backward_kernels() -> dict:
     err, args = flash_case(b, h, hkv, s, d, torch.bfloat16, "GQA")
     gqa = kernel_record(b, h, hkv, s, d, err, args, sdpa_case(args, "GQA"))
     del args
+    ((key, (b, h, hkv, s, d, _)),) = rank_shapes()[0].items()
+    err, args = flash_case(b, h, hkv, s, d, torch.bfloat16, key)
+    rank = kernel_record(b, h, hkv, s, d, err, args, sdpa_case(args, key))
+    del args
     b, h, s, d = 4, 32, 1024, 64
     err, args = flash_case(b, h, h, s, d, torch.bfloat16, "training shape")
     results["flash_attention_bwd"] = dict(
         kernel_record(b, h, h, s, d, err, args, sdpa_case(args, "training shape")),
-        gqa_d128=gqa)
+        gqa_d128=gqa, **{key: rank})
     del args
     gc.collect()
     torch.cuda.empty_cache()
@@ -1723,6 +1768,61 @@ def phase_training() -> dict:
     return res
 
 
+def step_agreement(c: dict, g: dict, opt, what: str, c_name: str, g_name: str) -> dict:
+    """One AdamW step from the same weights and tokens, ``g`` against
+    ``c`` (each a dict of ``loss`` and per-parameter ``grads``, ``old``
+    and ``new`` weights and ``g_used``, the first moment over 1 - b1):
+    loss within 1e-4 relative; each gradient within 2e-3 of its tensor's
+    norm; each updated parameter within 1e-6 plus what the two
+    gradients' difference can move AdamW's first step, with the
+    sign-flip allowance (``phase_train_card_vs_cpu``) on at most
+    ``FLIP_SHARE`` of the elements, each at a gradient under
+    ``FLIP_GRAD`` of its tensor's norm. Logs and checks; returns the
+    numbers."""
+    import torch
+
+    lc, lg = c["loss"], g["loss"]
+    grad_rel, upd_over, flips, flip_g = {}, {}, {}, {}
+    for k, gw in c["grads"].items():
+        grad_rel[k] = float((g["grads"][k] - gw).abs().max()) / max(float(gw.norm()), 1e-12)
+        g1, g2 = g["g_used"][k].double(), c["g_used"][k].double()
+        drift = (g1 - g2).abs() * opt.eps / (torch.minimum(g1.abs(), g2.abs()) + opt.eps) ** 2
+        flip = g1.sign() != g2.sign()
+        bound = 1e-6 + opt.lr * torch.where(flip, torch.full_like(drift, 2.0), drift)
+        upd_over[k] = float(((g["new"][k] - c["new"][k]).abs().double() / bound).max())
+        # The elements given the sign-flip allowance, and the largest
+        # gradient among them as a share of its tensor's norm.
+        flips[k] = int(flip.sum())
+        flip_g[k] = (float(torch.maximum(g1.abs(), g2.abs())[flip].max())
+                     / max(float(g2.norm()), 1e-30)) if flips[k] else 0.0
+    worst_g = max(grad_rel, key=grad_rel.get)
+    worst_p = max(upd_over, key=upd_over.get)
+    worst_f = max(flip_g, key=flip_g.get)
+    n_flips, n_elems = sum(flips.values()), sum(t.numel() for t in c["grads"].values())
+    upd_rel = max(float((g["new"][k] - c["new"][k]).abs().max()) / max(
+        float((c["new"][k] - c["old"][k]).norm()), 1e-12) for k in c["new"])
+    out = dict(loss_ref=lc, loss=lg, grad_err_of_norm=grad_rel[worst_g],
+               worst_grad=worst_g, update_err_of_bound=upd_over[worst_p], worst_update=worst_p,
+               update_err_of_update_norm=upd_rel, sign_flips=n_flips,
+               sign_flip_grad_of_norm=flip_g[worst_f])
+    log(f"  loss {g_name} {lg:.6f}, {c_name} {lc:.6f}; worst gradient error "
+        f"{grad_rel[worst_g]:.3g} of its norm ({worst_g}); worst updated parameter "
+        f"{upd_over[worst_p]:.3g} of its bound ({worst_p}), {upd_rel:.3g} of its update's norm "
+        f"at most ({len(grad_rel)} tensors); sign-flip allowance taken by {n_flips} of "
+        f"{n_elems} elements ({dict((k, n) for k, n in flips.items() if n)}), their largest "
+        f"gradient {flip_g[worst_f]:.3g} of its tensor's norm ({worst_f})")
+    check(abs(lg - lc) <= 1e-4 * abs(lc), f"{what} loss: {g_name} {lg}, {c_name} {lc}")
+    check(grad_rel[worst_g] <= 2e-3, f"{what} gradient {worst_g}: max abs err "
+          f"{grad_rel[worst_g]:.3g} of its norm")
+    check(upd_over[worst_p] <= 1.0, f"{what} updated {worst_p}: beyond its bound "
+          f"({upd_over[worst_p]:.3g} of it)")
+    check(n_flips <= FLIP_SHARE * n_elems, f"{what}: {n_flips} of {n_elems} elements took "
+          f"the sign-flip allowance (limit {FLIP_SHARE:g} of them)")
+    check(flip_g[worst_f] <= FLIP_GRAD, f"{what} {worst_f}: a sign flip at a gradient "
+          f"{flip_g[worst_f]:.3g} of its norm (limit {FLIP_GRAD:g})")
+    return out
+
+
 def phase_train_card_vs_cpu() -> dict:
     """One ``make_train_step`` step of zamba2-1.2B at full width cut to 8
     layers, float32, batch 1 x 256 tokens, from the same weights and
@@ -1775,48 +1875,10 @@ def phase_train_card_vs_cpu() -> dict:
     for name in ("flash_attention", "flash_attention_bwd", "mamba2_chunk_scan",
                  "mamba2_chunk_scan_bwd"):
         check(counts[name] > 0, f"phase 7b launched no {name} kernel")
-    lc, lg = res["cpu"]["loss"], res["card"]["loss"]
     c, g = res["cpu"], res["card"]
-    grad_rel, upd_over, flips, flip_g = {}, {}, {}, {}
-    for k, gw in c["grads"].items():
-        grad_rel[k] = float((g["grads"][k] - gw).abs().max()) / max(float(gw.norm()), 1e-12)
-        g1, g2 = g["g_used"][k].double(), c["g_used"][k].double()
-        drift = (g1 - g2).abs() * opt.eps / (torch.minimum(g1.abs(), g2.abs()) + opt.eps) ** 2
-        flip = g1.sign() != g2.sign()
-        bound = 1e-6 + opt.lr * torch.where(flip, torch.full_like(drift, 2.0), drift)
-        upd_over[k] = float(((g["new"][k] - c["new"][k]).abs().double() / bound).max())
-        # The elements given the sign-flip allowance, and the largest
-        # gradient among them as a share of its tensor's norm.
-        flips[k] = int(flip.sum())
-        flip_g[k] = (float(torch.maximum(g1.abs(), g2.abs())[flip].max())
-                     / max(float(g2.norm()), 1e-30)) if flips[k] else 0.0
-    worst_g = max(grad_rel, key=grad_rel.get)
-    worst_p = max(upd_over, key=upd_over.get)
-    worst_f = max(flip_g, key=flip_g.get)
-    n_flips, n_elems = sum(flips.values()), sum(t.numel() for t in c["grads"].values())
-    upd_rel = max(float((g["new"][k] - c["new"][k]).abs().max()) / max(
-        float((c["new"][k] - c["old"][k]).norm()), 1e-12) for k in c["new"])
-    out = dict(loss_cpu=lc, loss_card=lg, grad_err_of_norm=grad_rel[worst_g],
-               worst_grad=worst_g, update_err_of_bound=upd_over[worst_p], worst_update=worst_p,
-               update_err_of_update_norm=upd_rel, sign_flips=n_flips,
-               sign_flip_grad_of_norm=flip_g[worst_f], cpu_s=c["seconds"],
+    out = dict(step_agreement(c, g, opt, "phase 7b", "CPU", "card"), cpu_s=c["seconds"],
                card_s=g["seconds"], launches=counts)
-    log(f"  loss card {lg:.6f}, CPU {lc:.6f}; worst gradient error {grad_rel[worst_g]:.3g} "
-        f"of its norm ({worst_g}); worst updated parameter {upd_over[worst_p]:.3g} of its "
-        f"bound ({worst_p}), {upd_rel:.3g} of its update's norm at most "
-        f"({len(grad_rel)} tensors); sign-flip allowance taken by {n_flips} of {n_elems} "
-        f"elements ({dict((k, n) for k, n in flips.items() if n)}), their largest gradient "
-        f"{flip_g[worst_f]:.3g} of its tensor's norm ({worst_f}); CPU {c['seconds']:.1f} s; "
-        f"launches {counts}")
-    check(abs(lg - lc) <= 1e-4 * abs(lc), f"phase 7b loss: card {lg}, CPU {lc}")
-    check(grad_rel[worst_g] <= 2e-3, f"phase 7b gradient {worst_g}: max abs err "
-          f"{grad_rel[worst_g]:.3g} of its norm")
-    check(upd_over[worst_p] <= 1.0, f"phase 7b updated {worst_p}: beyond its bound "
-          f"({upd_over[worst_p]:.3g} of it)")
-    check(n_flips <= FLIP_SHARE * n_elems, f"phase 7b: {n_flips} of {n_elems} elements took "
-          f"the sign-flip allowance (limit {FLIP_SHARE:g} of them)")
-    check(flip_g[worst_f] <= FLIP_GRAD, f"phase 7b {worst_f}: a sign flip at a gradient "
-          f"{flip_g[worst_f]:.3g} of its norm (limit {FLIP_GRAD:g})")
+    log(f"  CPU {c['seconds']:.1f} s; launches {counts}")
     del cpu, card, res, c, g
     gc.collect()
     torch.cuda.empty_cache()
@@ -2415,6 +2477,622 @@ def phase_main_path(tiles) -> dict:
     return runs
 
 
+# --------------------------------------------------------------------------
+# phase 10: the launchers beyond one card, as ranks that share the card
+# --------------------------------------------------------------------------
+
+#: (a): qwen1.5-4b at its published widths, tensor-parallel on mesh
+#: (data 1, model 2): float32 masters, bf16 activations, AdamW (cosine),
+#: remat; depth cut to what fits (``dist_layers``).
+DIST = dict(arch="qwen1.5-4b", batch=4, seq=1024, steps=12, min_layers=8, lr=3e-4, seed=0)
+#: (b)-(d) at the same widths cut to 2 layers: (b) one float32 step,
+#: (c) int8 error-feedback data parallelism on (2, 1), (d) greedy decode.
+DIST_SMALL = dict(layers=2, batch=2, seq=256, seed=10)
+DIST_EF = dict(batch=4, seq=256, steps=4, lr=1e-3)
+DIST_SERVE = dict(batch=4, prompt=1024, steps=16, small_prompt=128)
+#: (e): smoke qwen1.5 on (2, 2), then on (1, 2): the reference's
+#: ``test_elastic_remesh_subprocess`` (batch 8 x 32 tokens, 3 + 3 steps).
+DIST_ELASTIC = dict(arch="qwen1.5-4b", batch=8, seq=33, steps=3, lr=1e-3, seed=5)
+#: Bytes a trained parameter holds at the optimizer's peak: the float32
+#: master, its gradient, two moments and AdamW's two update temporaries.
+STATE_BYTES = 24
+#: Per rank, beside the state: its CUDA context, the logits of its block
+#: of the vocabulary and their softmax, the rematerialised activations.
+RANK_RESERVE = 8 << 30
+DIST_TIMEOUT = 420.0
+
+
+def dense_param_counts(cfg) -> tuple[int, int]:
+    """(parameters per layer, parameters outside the layers) of a dense
+    model (unpadded attention: the plan adds no slot at tp=2 here)."""
+    d, h, kv, hd, ff = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.d_ff
+    attn = 2 * d * h * hd + 2 * d * kv * hd + h + ((h + 2 * kv) * hd if cfg.qkv_bias else 0)
+    mlp = (3 if cfg.act == "swiglu" else 2) * d * ff
+    norms = 2 * d if cfg.norm == "rmsnorm" else 4 * d
+    head = 0 if cfg.tie_embeddings else cfg.vocab_size * d
+    return attn + mlp + 2 * norms, cfg.vocab_size * d + head + norms
+
+
+def dist_layers(free_bytes: int, ranks: int = 2) -> tuple[int, str]:
+    """The depth of phase 10 (a): the most layers whose training state
+    (``STATE_BYTES`` a parameter) fits the card's free memory beside
+    ``RANK_RESERVE`` per rank, at least ``DIST["min_layers"]``."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(DIST["arch"])
+    per_layer, fixed = dense_param_counts(cfg)
+    fit = int((0.92 * free_bytes - ranks * RANK_RESERVE - STATE_BYTES * fixed)
+              // (STATE_BYTES * per_layer))
+    layers = max(DIST["min_layers"], min(cfg.n_layers, fit))
+    whole = STATE_BYTES * (fixed + cfg.n_layers * per_layer)
+    why = (f"{cfg.n_layers} layers are {(fixed + cfg.n_layers * per_layer) / 1e9:.2f} B "
+           f"parameters: {whole / 1e9:.1f} GB at {STATE_BYTES} bytes each (float32 master, "
+           f"gradient, two moments, AdamW's two temporaries) beside {ranks} x "
+           f"{RANK_RESERVE >> 30} GiB of activations and logits, on {free_bytes / 2**30:.1f} GiB "
+           f"free; {fit} layers fit, {layers} run")
+    return layers, why
+
+
+def _zipf_tokens(rng, vocab: int, shape) -> "torch.Tensor":
+    import numpy as np
+    import torch
+
+    return torch.as_tensor(np.minimum(rng.zipf(1.2, shape) - 1, vocab - 1).astype(np.int64))
+
+
+def _gloo_cuda_probe() -> dict:
+    """Which ``gloo`` collectives take CUDA tensors on this machine (the
+    port stages every CUDA collective through host memory on ``gloo``
+    all the same, and counts the bytes)."""
+    import torch
+    import torch.distributed as dist
+
+    n = dist.get_world_size()
+    x = torch.ones(8 * n, device="cuda")
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_reduce_bfloat16": lambda: dist.all_reduce(x.to(torch.bfloat16)),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(8 * n * n, device="cuda"), x),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(8, device="cuda"), x),
+    }
+    out = {"backend": dist.get_backend()}
+    for name, call in calls.items():
+        try:
+            call()
+            torch.cuda.synchronize()
+            out[name] = "runs"
+        except (RuntimeError, ValueError) as exc:  # the answer, recorded and printed
+            out[name] = "refused: " + str(exc).strip().splitlines()[0][:160]
+    return out
+
+
+def _whole_tree(model, tree: dict) -> dict:
+    """Every leaf of a parameter-shaped tree of this rank's chunks, whole."""
+    from repro_torch.launch.spmd import gather_whole
+
+    sp = model.spmd
+    return {k: gather_whole(t.detach(), sp.specs[k], sp.mesh) for k, t in tree.items()}
+
+
+def _one_step(model, opt, toks, shards: bool) -> dict:
+    """One ``loss_and_grads`` + AdamW step; -> the numbers
+    :func:`step_agreement` reads, whole (gathered on a mesh)."""
+    from repro_torch.train import loss_and_grads
+
+    params = dict(model.named_parameters())
+    loss, _, grads = loss_and_grads(model, {"tokens": toks})
+    old = {k: p.detach().clone() for k, p in params.items()}
+    kept = {k: g.clone() for k, g in grads.items()}
+    _, state = opt.update(grads, opt.init(params), params,
+                          **({"shards": model.spmd} if shards else {}))
+    g_used = {k: m / (1 - opt.b1) for k, m in state.mu.items()}
+    new = {k: p.detach() for k, p in params.items()}
+    if shards:
+        old, kept, new, g_used = (_whole_tree(model, t) for t in (old, kept, new, g_used))
+    return dict(loss=float(loss), grads=kept, old=old, new=new, g_used=g_used)
+
+
+def _dist_card_vs_card(rank: int, mesh) -> dict:
+    """(b): one float32 step at 2 layers on ``mesh`` against one step on
+    a single rank (rank 0, the other waiting), from the same seed."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as K
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+
+    cfg = dataclasses.replace(get_config(DIST["arch"]), n_layers=DIST_SMALL["layers"])
+    dev = torch.device("cuda", 0)
+    toks = torch.as_tensor(np.random.default_rng(DIST_SMALL["seed"]).integers(
+        0, cfg.vocab_size, (DIST_SMALL["batch"], DIST_SMALL["seq"]))).to(dev)
+    opt = AdamW(lr=1e-3)
+    build = lambda **kw: build_model(cfg, device=dev, seed=DIST_SMALL["seed"],  # noqa: E731
+                                     trainable=True, act_dtype=torch.float32, **kw)
+    K.reset_launch_counts()
+    sharded = _one_step(build(mesh=mesh), opt, toks, shards=True)
+    counts = K.launch_counts()
+    out = {"launches": counts}
+    if rank == 0:
+        torch.cuda.empty_cache()
+        single = _one_step(build(), opt, toks, shards=False)
+        out.update(step_agreement(single, sharded, opt, "phase 10 (b)", "one rank",
+                                  "mesh (1, 2)"))
+        del single
+    del sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _dist_ef(rank: int) -> dict:
+    """(c): ``make_compressed_dp_grads`` on mesh (data 2, model 1) at 2
+    layers, float32; then the loss over ``DIST_EF["steps"]`` steps. The
+    first step's gradients (error 0) against the ranks' own gradients:
+    each element within one int8 step (the largest rank's scale) of a
+    plain version of the reference's arithmetic (each rank's codes from
+    ``compress_int8`` of each of the reference's leaves, a stacked one
+    holding every layer, summed, times the largest scale, over the ranks),
+    and within what that arithmetic allows of the exact mean: a rank's
+    codes are off its gradient by half its own step, and are then scaled
+    by the largest step, which moves a code q by |q| times the scales'
+    difference. So the exact mean is held to ``sum_r (|q_r| (s_max -
+    s_r) + s_r / 2) / n`` (plus 1e-3 of a step for float32 rounding); the
+    distance in int8 steps is printed."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import reference_path
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, compress_int8
+    from repro_torch.train import loss_and_grads, make_compressed_dp_grads
+
+    mesh = make_mesh((2, 1), ("data", "model"), "cuda")
+    comm = mesh.comm("data")
+    cfg = dataclasses.replace(get_config(DIST["arch"]), n_layers=DIST_SMALL["layers"])
+    dev = torch.device("cuda", 0)
+    model = build_model(cfg, device=dev, seed=DIST_SMALL["seed"], trainable=True,
+                        act_dtype=torch.float32)
+    toks = torch.as_tensor(np.random.default_rng(13).integers(
+        0, cfg.vocab_size, (DIST_EF["batch"], DIST_EF["seq"]))).to(dev)
+    params = dict(model.named_parameters())
+    _, _, local = loss_and_grads(model, {"tokens": toks.chunk(comm.size)[comm.rank]})
+    grads_fn = make_compressed_dp_grads(model, mesh, ("data",))
+    err = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
+    before = dict(comm.bytes)
+    grads, err, loss = grads_fn({"tokens": toks}, err)
+    wire = {k: v - before.get(k, 0) for k, v in comm.bytes.items()}
+    steps, over, off_exact = {}, {}, {}
+    n = comm.size
+    groups: dict[str, list[str]] = {}  # the reference's leaves: a stacked one holds every layer
+    for k in local:
+        groups.setdefault(reference_path(k), []).append(k)
+    for k, names in groups.items():
+        g = torch.stack([local[name] for name in names])
+        got = torch.stack([grads[name] for name in names])
+        ranks = comm.all_gather(g[None], 0)
+        codes, scales = zip(*(compress_int8(r) for r in ranks))
+        q, s = torch.stack(codes).float(), torch.stack(scales)
+        top = s.max()
+        plain = q.sum(0) * top / n
+        allowed = ((q.abs() * (top - s).view(-1, *[1] * g.dim())).sum(0) + s.sum() / 2) / n
+        diff = (got - ranks.mean(0)).abs()
+        steps[k] = float((got - plain).abs().max() / top)
+        over[k] = float((diff - allowed).max() / top)
+        off_exact[k] = float(diff.max() / top)
+    del local
+    opt = AdamW(lr=DIST_EF["lr"])
+    state = opt.init(params)
+    losses = [float(loss)]
+    for _ in range(DIST_EF["steps"] - 1):
+        _, state = opt.update(grads, state, params)
+        grads, err, loss = grads_fn({"tokens": toks}, err)
+        losses.append(float(loss))
+    worst = max(steps, key=steps.get)
+    worst_over = max(over, key=over.get)
+    worst_exact = max(off_exact, key=off_exact.get)
+    del model, params, grads, err, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(int8_steps_off_plain=steps[worst], worst=worst,
+                steps_beyond_allowed=over[worst_over], worst_over=worst_over,
+                int8_steps_off_exact=off_exact[worst_exact], worst_exact=worst_exact,
+                losses=losses, wire_bytes=wire, leaves=len(steps))
+
+
+def _dist_serve(rank: int, mesh, layers: int) -> dict:
+    """(d): the bf16 model of (a) (``layers`` deep) on ``mesh``: a warm-up,
+    prefill of ``DIST_SERVE`` rows, greedy decode; then 2 layers in
+    float32, teacher-forced on a single rank's greedy tokens (rank 0)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as K
+    from repro_torch.models import build_model
+    from repro_torch.train import make_serve_step
+
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(get_config(DIST["arch"]), n_layers=layers)
+    b, n, steps = DIST_SERVE["batch"], DIST_SERVE["prompt"], DIST_SERVE["steps"]
+    rng = np.random.default_rng(21)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, n))).to(dev)
+    model = build_model(cfg, device=dev, seed=11, mesh=mesh)
+    model.prefill({"tokens": toks[:, :128]}, 128 + steps)  # warm-up
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill({"tokens": toks}, n + steps)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    slots = caches["kv"][0]["k"].shape[1]
+    step = make_serve_step(model)
+    nxt = logits.argmax(-1).to(torch.int32)
+    lengths = torch.full((b,), n, dtype=torch.int32, device=dev)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        nxt, logits, caches, lengths = step(caches, nxt, lengths)
+    final = nxt.tolist()  # the host read ends the timed loop
+    decode_s = time.perf_counter() - t0
+    counts = K.launch_counts()
+    finite = bool(torch.isfinite(logits).all())
+    del model, caches, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    small = dataclasses.replace(cfg, n_layers=DIST_SMALL["layers"])
+    p = DIST_SERVE["small_prompt"]
+    prompt = toks[:, :p]
+
+    def greedy(model, forced=None):
+        logits, caches = model.prefill({"tokens": prompt}, p + steps)
+        out, toks_ = [logits], []
+        lengths = torch.full((b,), p, dtype=torch.int32, device=dev)
+        serve = make_serve_step(model)
+        for i in range(steps):
+            t = logits.argmax(-1).to(torch.int32) if forced is None else forced[i]
+            toks_.append(t)
+            _, logits, caches, lengths = serve(caches, t, lengths)
+            out.append(logits)
+        return torch.stack(out), toks_
+
+    agree = {}
+    ref = [None]
+    if rank == 0:
+        ref = [greedy(build_model(small, device=dev, seed=12).float())]
+        torch.cuda.empty_cache()
+    obj = [None if rank else [t.cpu() for t in ref[0][1]]]
+    dist.broadcast_object_list(obj, src=0)
+    got, _ = greedy(build_model(small, device=dev, seed=12, mesh=mesh).float(),
+                    forced=[t.to(dev) for t in obj[0]])
+    if rank == 0:
+        want = ref[0][0]
+        err = float((got - want).abs().max())
+        _greedy_agrees(got, want, err, "phase 10 (d) float32, mesh (1, 2) against one rank")
+        agree = dict(logits_max_abs_err=err, steps=steps + 1,
+                     tokens=[t.tolist() for t in ref[0][1]])
+    del got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(prefill_s=prefill_s, decode_s=decode_s, decode_tokens_per_s=b * steps / decode_s,
+                slots_per_rank=slots, launches=counts, finite=finite, last_tokens=final,
+                small=agree)
+
+
+def _dist_train(rank: int, mesh, layers: int) -> dict:
+    """(a): ``DIST`` on ``mesh``, ``layers`` deep."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as K
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.train import TrainState, make_train_step
+
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(get_config(DIST["arch"]), n_layers=layers)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=DIST["seed"], trainable=True, mesh=mesh)
+    build_s = time.perf_counter() - t0
+    opt = AdamW(lr=cosine_schedule(DIST["lr"], 2, DIST["steps"]))
+    params = dict(model.named_parameters())
+    state = TrainState(params, opt.init(params))
+    step = make_train_step(model, opt)
+    rng = np.random.default_rng(DIST["seed"])
+    batches = [_zipf_tokens(rng, cfg.vocab_size, (DIST["batch"], DIST["seq"])).to(dev)
+               for _ in range(DIST["steps"])]
+    comm = mesh.comm("model")
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs, per_step = [], [], {}
+    for i, toks in enumerate(batches):
+        if i == 2:
+            comm.bytes.clear()
+            comm.staged.clear()
+        t0 = time.perf_counter()
+        state, metrics = step(state, {"tokens": toks})
+        losses.append(float(metrics["loss"]))  # the host read ends the step
+        secs.append(time.perf_counter() - t0)
+        if i == 2:
+            per_step = dict(bytes=dict(comm.bytes), staged=dict(comm.staged))
+    med = statistics.median(secs[2:])
+    out = dict(layers=layers, losses=losses, step_s=secs, step_s_median=med,
+               tokens_per_s=DIST["batch"] * DIST["seq"] / med,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30, build_s=build_s,
+               launches=K.launch_counts(), collective_bytes_per_step=per_step["bytes"],
+               staged_bytes_per_step=per_step["staged"],
+               params_per_rank=sum(p.numel() for p in params.values()))
+    del model, params, state, step, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _staging_ms(comm, n: int = 10) -> dict:
+    """One staged all-reduce of a bf16 activation of (a) (batch x seq x
+    d_model), ms per call, and its parts: the copy to pinned host memory,
+    gloo's all-reduce there, the copy back."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+
+    d = get_config(DIST["arch"]).d_model
+    x = torch.randn(DIST["batch"], DIST["seq"], d, device="cuda").to(torch.bfloat16)
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+
+    def ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    out = dict(bytes=x.numel() * x.element_size(), all_reduce=ms(lambda: comm.all_reduce(x)),
+               to_host=ms(lambda: host.copy_(x)),
+               gloo=ms(lambda: dist.all_reduce(host, group=comm.group)),
+               to_card=ms(lambda: host.to(x.device)))
+    comm.bytes.clear()
+    comm.staged.clear()
+    return out
+
+
+def _dist_job_tp(rank: int, layers: int) -> dict:
+    """The 2-rank job: the gloo probe, (b), (c), (d), then (a)."""
+    from repro_torch.launch.mesh import make_mesh
+
+    res = {"probe": _gloo_cuda_probe(), "seconds": {}}
+    mesh = make_mesh((1, 2), ("data", "model"), "cuda")
+    res["staging_ms"] = _staging_ms(mesh.comm("model"))
+    for part, run in (("b", lambda: _dist_card_vs_card(rank, mesh)),
+                      ("c", lambda: _dist_ef(rank)),
+                      ("d", lambda: _dist_serve(rank, mesh, layers)),
+                      ("a", lambda: _dist_train(rank, mesh, layers))):
+        t0 = time.perf_counter()
+        res[part] = run()
+        res["seconds"][part] = time.perf_counter() - t0
+    return res
+
+
+def _dist_job_elastic(rank: int, layers: int) -> dict:
+    """(e), 4 ranks: 3 steps on (2, 2), ``reshard_state`` onto (1, 2),
+    3 more; rank 0 then runs the 6 steps alone and compares."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.elastic import reshard_state
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.spmd import gather_whole
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.train import TrainState, make_train_step
+
+    del layers
+    e = DIST_ELASTIC
+    dev = torch.device("cuda", 0)
+    cfg = get_smoke_config(e["arch"])
+    toks = torch.as_tensor(np.random.default_rng(e["seed"]).integers(
+        0, cfg.vocab_size, (e["batch"], e["seq"]))).to(dev)
+    mesh_a = make_mesh((2, 2), ("data", "model"), "cuda")
+    mesh_b = make_mesh((1, 2), ("data", "model"), "cuda", ranks=(0, 1))
+    build = lambda **kw: build_model(cfg, device=dev, seed=e["seed"], trainable=True,  # noqa: E731
+                                     act_dtype=torch.float32, **kw)
+    model = build(mesh=mesh_a)
+    opt = AdamW(lr=e["lr"])
+    params = dict(model.named_parameters())
+    state = TrainState(params, opt.init(params))
+    step = make_train_step(model, opt)
+    losses = []
+    for _ in range(e["steps"]):
+        state, m = step(state, {"tokens": toks})
+        losses.append(float(m["loss"]))
+    state = reshard_state(state, cfg, mesh_b, model=model)
+    out = {"losses": losses}
+    if state is not None:
+        for _ in range(e["steps"]):
+            state, m = step(state, {"tokens": toks})
+            losses.append(float(m["loss"]))
+        whole = {k: gather_whole(p.detach(), model.spmd.specs[k], mesh_b)
+                 for k, p in state.params.items()}
+        if rank == 0:
+            one = build()
+            params1 = dict(one.named_parameters())
+            s1, step1 = TrainState(params1, opt.init(params1)), make_train_step(one, opt)
+            single = []
+            for _ in range(2 * e["steps"]):
+                s1, m1 = step1(s1, {"tokens": toks})
+                single.append(float(m1["loss"]))
+            worst = max((float(((whole[k] - p.detach()).abs() - 2e-3 * p.detach().abs()).max()),
+                         k) for k, p in s1.params.items())
+            out.update(single=single, param_excess_over_2e3=worst[0], worst=worst[1])
+    dist.barrier()
+    return out
+
+
+def _dist_rank(rank: int, world: int, init: str, job: str, layers: int, out_dir: str,
+               src: str) -> None:
+    """A spawned rank of phase 10: joins the ``gloo`` process group (ranks
+    that share one card cannot use ``nccl``), runs ``job`` and saves what
+    it returns. An exception ends the rank with a non-zero code."""
+    sys.path.insert(0, src)
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=DIST_TIMEOUT))
+    try:
+        jobs = {"tp": _dist_job_tp, "elastic": _dist_job_elastic}
+        res = jobs[job](rank, layers)
+        torch.save(res, Path(out_dir) / f"{job}_{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(job: str, world: int, layers: int) -> list[dict]:
+    """Run ``job`` on ``world`` spawned ranks that share the card; every
+    rank must exit 0 within ``DIST_TIMEOUT`` (the others are killed when
+    one fails). -> each rank's result."""
+    import multiprocessing as mp
+    import shutil
+
+    import torch
+
+    out = ROOT / "build" / "phase10" / job
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_dist_rank, args=(r, world, str(out / "rendezvous"), job,
+                                                  layers, str(out), str(SRC)))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + DIST_TIMEOUT
+    try:
+        while any(p.is_alive() for p in procs):
+            failed = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+            check(not failed, f"phase 10 {job}: a rank exited with {failed}")
+            check(time.perf_counter() < deadline,
+                  f"phase 10 {job}: ranks still running after {DIST_TIMEOUT:.0f} s")
+            time.sleep(0.2)
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * world, f"phase 10 {job}: rank exit codes {codes}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+    res = [torch.load(out / f"{job}_{r}.pt", weights_only=False) for r in range(world)]
+    shutil.rmtree(out, ignore_errors=True)
+    return res
+
+
+def phase_distributed() -> dict:
+    """Phase 10: the port's multi-rank layer (``launch/{mesh,sharding,
+    spmd,elastic}.py``) on ranks that share the one card, over ``gloo``
+    with every collective staged through host memory (counted). Two
+    ranks on one card measure correctness and the cost of the
+    collectives on one card, not scaling across cards."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    layers, why = dist_layers(free)
+    log(f"  (a) depth: {why}")
+    t0 = time.perf_counter()
+    tp = spawn_ranks("tp", 2, layers)
+    tp_s = time.perf_counter() - t0
+    probe = tp[0]["probe"]
+    log(f"  gloo with CUDA tensors on this machine: {json.dumps(probe)}; a staged all-reduce "
+        f"of one activation of (a), ms: {json.dumps(tp[0]['staging_ms'])}; seconds by part "
+        f"(rank 0): {json.dumps(tp[0]['seconds'])}")
+    b = tp[0]["b"]
+    check(all(r["b"]["launches"]["flash_attention"] > 0
+              and r["b"]["launches"]["flash_attention_bwd"] > 0 for r in tp),
+          "phase 10 (b): a rank launched no flash kernel")
+    c = tp[0]["c"]
+    log(f"  (c) int8 error feedback on (2, 1), first step, in int8 steps of the largest "
+        f"scale: {c['int8_steps_off_plain']:.3g} from the plain arithmetic ({c['worst']}), "
+        f"{c['steps_beyond_allowed']:.3g} beyond what it allows of the exact mean "
+        f"({c['worst_over']}), {c['int8_steps_off_exact']:.3g} from the exact mean "
+        f"({c['worst_exact']}); {c['leaves']} tensors; losses "
+        f"{[round(x, 4) for x in c['losses']]}; bytes a step {c['wire_bytes']}")
+    check(c["int8_steps_off_plain"] <= 1.0, f"phase 10 (c): {c['worst']} is "
+          f"{c['int8_steps_off_plain']:.3g} int8 steps from the plain arithmetic")
+    check(c["steps_beyond_allowed"] <= 1e-3, f"phase 10 (c): {c['worst_over']} is "
+          f"{c['steps_beyond_allowed']:.3g} int8 steps beyond its bound from the exact mean")
+    check(c["losses"][-1] < c["losses"][0], f"phase 10 (c): loss did not fall: {c['losses']}")
+    d = tp[0]["d"]
+    log(f"  (d) serving {layers} layers, bf16, on (1, 2): prefill {DIST_SERVE['batch']} x "
+        f"{DIST_SERVE['prompt']} in {d['prefill_s']:.4f} s, {DIST_SERVE['steps']} greedy steps "
+        f"{d['decode_tokens_per_s']:.1f} tokens/s; {d['slots_per_rank']} KV slots a rank; "
+        f"launches {d['launches']}; 2 layers float32 against one rank: {d['small']}")
+    check(d["slots_per_rank"] == 10, f"phase 10 (d): {d['slots_per_rank']} slots a rank")
+    check(d["finite"], "phase 10 (d): non-finite logits")
+    for r in tp:
+        check(r["d"]["launches"]["decode_attention"] > 0
+              and r["d"]["launches"]["flash_attention"] > 0,
+              "phase 10 (d): a rank launched no decode or flash kernel")
+    a = [r["a"] for r in tp]
+    losses = a[0]["losses"]
+    check(all(math.isfinite(x) for x in losses), f"phase 10 (a): non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"phase 10 (a): loss did not fall: {losses}")
+    for i, r in enumerate(a):
+        for name in ("flash_attention", "flash_attention_bwd"):
+            check(r["launches"][name] > 0, f"phase 10 (a): rank {i} launched no {name} kernel")
+    log(f"  (a) training {DIST['arch']} {layers} of 40 layers on (1, 2): loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; step {a[0]['step_s_median']:.4f} s (median "
+        f"after step 2), {a[0]['tokens_per_s']:.1f} tokens/s; peak "
+        f"{[round(r['peak_gib'], 2) for r in a]} GiB a rank; collective bytes a step and rank "
+        f"{a[0]['collective_bytes_per_step']}, staged through the host "
+        f"{a[0]['staged_bytes_per_step']} (backend {probe['backend']}); launches a rank "
+        f"{[r['launches'] for r in a]}; build {a[0]['build_s']:.1f} s")
+    log(f"  (a) losses {[round(x, 4) for x in losses]}")
+    t0 = time.perf_counter()
+    el = spawn_ranks("elastic", 4, layers)
+    el_s = time.perf_counter() - t0
+    e = el[0]
+    log(f"  (e) elastic smoke qwen1.5: (2, 2) losses {e['losses'][:3]}, then (1, 2) "
+        f"{e['losses'][3:]}; one rank {e['single']}; worst parameter beyond 2e-3 "
+        f"{e['param_excess_over_2e3']:.3g} ({e['worst']})")
+    check(e["losses"][-1] < e["losses"][0], f"phase 10 (e): loss did not fall: {e['losses']}")
+    check(abs(e["losses"][-1] - e["single"][-1]) <= 2e-3 + 2e-3 * abs(e["single"][-1]),
+          f"phase 10 (e): loss {e['losses'][-1]} against one rank's {e['single'][-1]}")
+    check(e["param_excess_over_2e3"] <= 2e-3, f"phase 10 (e): {e['worst']} beyond 2e-3")
+    log(f"  phase 10: {tp_s:.1f} s (2 ranks), {el_s:.1f} s (4 ranks)")
+    return dict(layers=layers, depth=why, probe=probe, staging_ms=tp[0]["staging_ms"],
+                part_seconds=tp[0]["seconds"], b=b, c=c, d=d, a=a, e=e,
+                seconds=dict(tp=tp_s, elastic=el_s),
+                launches=dict(flash_attention=a[0]["launches"]["flash_attention"],
+                              flash_attention_bwd=a[0]["launches"]["flash_attention_bwd"],
+                              decode_attention=d["launches"]["decode_attention"]))
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
@@ -2495,9 +3173,14 @@ def main() -> int:
     log(f"phase 9: the other families at the published widths: {FAMILIES}; {XLSTM_SERVE}; "
         f"card against CPU: {FAMILY_SMOKE} and the int8 KV cache")
     families = phase_families()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 10: ranks that share this card over gloo: (a) {DIST}, (b) {DIST_SMALL}, "
+        f"(c) {DIST_EF}, (d) {DIST_SERVE}, (e) {DIST_ELASTIC}")
+    distributed = phase_distributed()
 
     records = []
-    family_keys = [key for shapes in family_shapes() for key in shapes]
+    family_keys = [key for shapes in (*family_shapes(), *rank_shapes()) for key in shapes]
     for name in REPLACES:
         res = kres[name]
         if PATHS[name] == "wsi":
@@ -2529,6 +3212,10 @@ def main() -> int:
         if name in ("flash_attention", "decode_attention"):
             records[-1]["launches_families"] = {m: families[m]["launches"][name]
                                                 for m in FAMILIES}
+        if name in ("flash_attention", "flash_attention_bwd", "decode_attention"):
+            n = distributed["launches"][name]
+            check(n > 0, f"{name}: no launch in phase 10's rank 0")
+            records[-1]["launches_distributed_rank0"] = n
         if PATHS[name] == "training":
             records[-1]["tpu_counterpart"] = None  # a backward kernel: the TPU had none
     log("kernels " + "; ".join(

@@ -42,7 +42,7 @@ import torch
 
 from ..kernels import ops
 from .config import ArchConfig
-from .layers import COMPUTE_DTYPE, apply_rope, dense_init
+from .layers import COMPUTE_DTYPE, apply_rope, dense_init, tp_enter, tp_exit
 from .plan import AttentionPlan
 
 __all__ = [
@@ -134,11 +134,12 @@ def _project_qkv(p, x: torch.Tensor, positions: torch.Tensor, theta: float):
 
 
 def _out_proj(p, out: torch.Tensor) -> torch.Tensor:
-    """out (B, slots, g, S, hd) -> (B, S, D) through the masked ``wo``."""
+    """out (B, slots, g, S, hd) -> (B, S, D) through the masked ``wo``
+    (on a tensor-parallel rank: its slots' part, summed over the ranks)."""
     b, slots, g, s, hd = out.shape
     out = out * p["head_mask"].to(out.dtype)[None, :, :, None, None]
     flat = out.permute(0, 3, 1, 2, 4).reshape(b, s, slots * g * hd)
-    return flat @ p["wo"].to(out.dtype).reshape(slots * g * hd, -1)
+    return tp_exit(p, flat @ p["wo"].to(out.dtype).reshape(slots * g * hd, -1))
 
 
 def attention_train(p, x: torch.Tensor, cfg: ArchConfig, *, causal: bool = True,
@@ -155,6 +156,7 @@ def attention_train(p, x: torch.Tensor, cfg: ArchConfig, *, causal: bool = True,
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)
+    x = tp_enter(p, x)
     q, k, v = _project_qkv(p, x, positions, cfg.rope_theta)
     if kv_override is not None:  # cross-attention (enc-dec)
         k, v = kv_override
@@ -181,6 +183,7 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 def cross_kv(p, enc: torch.Tensor):
     """Cross-attention K/V from encoder output (no RoPE)."""
     b, s, d = enc.shape
+    enc = tp_enter(p, enc)
     slots, hd = p["wk"].shape[1], p["wk"].shape[2]
     k = (enc @ p["wk"].to(enc.dtype).reshape(d, -1)).view(b, s, slots, hd)
     v = (enc @ p["wv"].to(enc.dtype).reshape(d, -1)).view(b, s, slots, hd)
@@ -229,6 +232,7 @@ def attention_decode(p, x: torch.Tensor, cache: dict[str, torch.Tensor],
     ``k_q``/``k_s``/``v_q``/``v_s``); lengths: (B,) int32 tokens already
     in the cache. Returns (y (B, 1, D), cache)."""
     b = x.shape[0]
+    x = tp_enter(p, x)
     # RoPE at each sequence's own position, which broadcasts differently
     # against q (B,slots,g,1,hd) and k (B,slots,1,hd): applied here.
     q, k, v = _project_qkv(p, x, lengths, theta=0.0)

@@ -20,9 +20,17 @@ import torch
 
 from .config import ArchConfig
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "stacked_in_reference", "STACKED_GROUPS"]
 
 _CARRIED = ("embed", "head", "final_norm", "shared", "enc_norm")
+#: Groups the reference stacks into one leaf per name, with a leading layer dim.
+STACKED_GROUPS = ("blocks", "enc_blocks")
+
+
+def stacked_in_reference(name: str) -> bool:
+    """Whether the port's parameter ``name`` (``blocks.3.attn.wq``) is one
+    layer of a leaf that the reference stacks over its layers."""
+    return name.split(".", 1)[0] in STACKED_GROUPS
 
 
 def _tensor(a) -> torch.Tensor:
@@ -39,7 +47,7 @@ def _flatten(prefix: str, node, out: dict, index: int | None = None) -> None:
 
 def params_from_jax(tree: dict, cfg: ArchConfig) -> dict[str, torch.Tensor]:
     """State dict of the port's model from the reference's pytree."""
-    stacked = {"blocks": cfg.n_layers, "enc_blocks": cfg.encoder_layers}
+    stacked = dict(zip(STACKED_GROUPS, (cfg.n_layers, cfg.encoder_layers)))
     out: dict[str, torch.Tensor] = {}
     for key, node in tree.items():
         if key in stacked:

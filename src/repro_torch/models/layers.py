@@ -28,6 +28,8 @@ __all__ = [
     "apply_rope",
     "gelu",
     "swish",
+    "tp_enter",
+    "tp_exit",
 ]
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -158,3 +160,18 @@ def swish(x: torch.Tensor) -> torch.Tensor:
     reference's ``jax.nn.sigmoid`` for bfloat16, and ``torch.sigmoid``
     rounds a third of bfloat16 inputs to the neighbouring value."""
     return x * (1 / (1 + torch.exp(-x)))
+
+
+def tp_enter(p, x: torch.Tensor) -> torch.Tensor:
+    """Where a tensor-parallel layer starts: identity. When ``p`` is one
+    rank's view of a layer split over the model axis
+    (``launch/spmd.py``), the backward all-reduces x's gradient over it."""
+    tp = getattr(p, "tp", None)
+    return x if tp is None else tp.enter(x)
+
+
+def tp_exit(p, y: torch.Tensor) -> torch.Tensor:
+    """After a tensor-parallel layer's last product: identity, or on a
+    rank's view the sum of the ranks' partial outputs."""
+    tp = getattr(p, "tp", None)
+    return y if tp is None else tp.exit(y)

@@ -4,13 +4,15 @@ The port of ``repro/models/model.py``. ``Model`` is an ``nn.Module``
 holding its parameter tree (the reference passes the pytree to each
 call); ``build_model`` draws the weights from a seeded generator on the
 target device, frozen in bfloat16 for serving or, with
-``trainable=True``, as float32 masters that take gradients.
+``trainable=True``, as float32 masters that take gradients. With a
+``mesh`` (``launch/mesh.py``), every rank draws the whole tree from the
+same generator and keeps its chunk (``launch/spmd.py``), so the sharded
+model computes what one rank computes.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from ..app._device import resolve_device
 from . import transformer as T
@@ -32,7 +34,12 @@ class Model(Params):
 
     A trainable model (``trainable=True``) keeps float32 masters and
     runs its activations in ``act_dtype`` (bfloat16, as the reference;
-    float32 for the CPU tests' check of the algorithm)."""
+    float32 for the CPU tests' check of the algorithm).
+
+    On a mesh (``spmd`` set, see ``launch/spmd.py``) the parameters are
+    this rank's chunks; ``train_forward`` returns this rank's block of
+    the vocabulary, and ``prefill``, ``decode_step`` and
+    ``init_caches`` take and return this rank's rows of the batch."""
 
     def __init__(self, cfg: ArchConfig, plan: ShardingPlan, params: dict,
                  trainable: bool = False, act_dtype: torch.dtype | None = None):
@@ -53,8 +60,7 @@ class Model(Params):
             labels, logits_s = inputs["labels"], logits
         else:
             labels, logits_s = inputs["tokens"][:, 1:], logits[:, :-1]
-        logp = F.log_softmax(logits_s, dim=-1)
-        nll = -logp.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+        nll = T.token_nll(self, logits_s, labels.clamp_min(0))
         mask = (labels >= 0).float()
         loss = (nll * mask).sum() / mask.sum().clamp_min(1.0)
         return loss + aux_weight * aux, {"nll": loss, "aux": aux}
@@ -63,6 +69,11 @@ class Model(Params):
         return T.decode_step(self, caches, tokens, lengths, self.cfg)
 
     def init_caches(self, batch: int, max_len: int):
+        """Empty caches for ``batch`` rows; on a mesh, this rank's chunk
+        of the caches of a global ``batch``."""
+        sp = getattr(self, "spmd", None)
+        if sp is not None:
+            return sp.init_caches(batch, max_len, self["embed"].device, T.compute_dtype(self))
         return T.init_caches(self.cfg, batch, max_len, self.plan, self["embed"].device,
                              T.compute_dtype(self))
 
@@ -73,19 +84,31 @@ class Model(Params):
 def build_model(cfg: ArchConfig, plan: ShardingPlan | None = None, *,
                 device="cuda", generator: torch.Generator | None = None,
                 seed: int = 0, trainable: bool = False,
-                act_dtype: torch.dtype = COMPUTE_DTYPE) -> Model:
+                act_dtype: torch.dtype = COMPUTE_DTYPE, mesh=None) -> Model:
     """Weights drawn on ``device`` (the card unless the caller asks for
     the CPU; a CUDA device without a card raises) from ``generator``,
     or from a new generator seeded with ``seed``. ``trainable=True``
     keeps them as float32 masters that take gradients, with activations
     in ``act_dtype``; otherwise frozen, bfloat16 where the reference
-    casts (serving), each tensor cast as soon as it is drawn."""
+    casts (serving), each tensor cast as soon as it is drawn.
+
+    With ``mesh``, the plan's ``tp`` is the mesh's model axis (padded
+    attention slots, ``plan.py``) and each rank keeps its chunk of every
+    tensor (``launch.spmd.distribute``); the whole tree exists on each
+    rank until it is cut."""
     dev = resolve_device(device)
     gen = generator if generator is not None else torch.Generator(dev).manual_seed(seed)
+    if mesh is not None and plan is None:
+        from ..launch.mesh import axes_for
+
+        ax = axes_for(mesh)
+        plan = make_plan(cfg, tp=ax.model_size(mesh), dp_axes=ax.data, tp_axis=ax.model)
     plan = plan or make_plan(cfg)
-    if plan.tp != 1:
-        raise NotImplementedError("the port runs tp=1 only (sharding: ROADMAP.md, open items, "
-                                  "queue 1, item 6)")
     tree = T.init_model_params(gen, cfg, plan, dev,
                                store=lambda name, t: stored(name, t, trainable))
-    return Model(cfg, plan, tree, trainable, act_dtype if trainable else None)
+    model = Model(cfg, plan, tree, trainable, act_dtype if trainable else None)
+    if mesh is not None:
+        from ..launch.spmd import distribute
+
+        distribute(model, mesh)
+    return model

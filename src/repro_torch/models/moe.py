@@ -14,6 +14,14 @@ accumulate) gives the same buffer and stays deterministic on the card;
 dropped pairs are written to one spare slot past the capacity, which the
 experts never read, so the write needs no host sync to select them.
 
+On a mesh (``launch/spmd.py``) the experts split over the model axis
+(``p.tp``): each rank routes every token with the whole router, runs its
+own experts on the pairs routed to them, and the combined outputs are
+summed over the ranks. Where the data axes split the batch (``p.dp``),
+the capacity, the ranks within each expert and the balance loss are the
+whole batch's: each rank's ranks start after the pairs of the ranks
+before it.
+
 Arctic's dense-MoE hybrid (``moe_dense_residual``) adds a parallel
 dense FFN to every MoE block; that lives in ``transformer.py``.
 """
@@ -26,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ArchConfig
-from .layers import dense_init, gelu, swish
+from .layers import dense_init, gelu, swish, tp_enter, tp_exit
 
 __all__ = ["init_moe", "apply_moe", "moe_capacity", "route"]
 
@@ -58,17 +66,25 @@ def route(p, xt: torch.Tensor, cfg: ArchConfig):
     the capacity (n*k,), the capacity, and the Switch balance loss."""
     n = xt.shape[0]
     e, k = cfg.n_experts, cfg.top_k
-    cap = moe_capacity(n, cfg)
+    dp = getattr(p, "dp", None)  # the data ranks that split the batch, if any
+    n_all = n * (dp.size if dp else 1)
+    cap = moe_capacity(n_all, cfg)
     probs = torch.softmax(xt.float() @ p["router"].float(), dim=-1)   # (n, e)
     gate_vals, expert_ids = torch.topk(probs, k, dim=-1)             # (n, k)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
     # Load-balancing auxiliary loss (Switch): e * sum(f_i * p_i).
     onehot_top1 = F.one_hot(expert_ids[:, 0], e).float()
-    aux = e * (onehot_top1.mean(0) * probs.mean(0)).sum()
+    if dp:
+        aux = e * ((dp.sum(onehot_top1.sum(0)) / n_all) * (dp.sum(probs.sum(0)) / n_all)).sum()
+    else:
+        aux = e * (onehot_top1.mean(0) * probs.mean(0)).sum()
     # Rank of each (token, slot) within its expert, in token order.
     flat_ids = expert_ids.reshape(-1)
     onehot = F.one_hot(flat_ids, e).to(torch.int32)                  # (n*k, e)
     ranks = onehot.cumsum(0, dtype=torch.int32) - onehot             # before me
+    if dp:  # after the pairs of the data ranks before this one
+        counts = dp.gather(onehot.sum(0, dtype=torch.int32)[None])   # (dp, e)
+        ranks = ranks + counts[: dp.rank].sum(0, dtype=torch.int32)
     rank_in_e = ranks.gather(1, flat_ids[:, None])[:, 0].long()
     return gate_vals, flat_ids, rank_in_e, rank_in_e < cap, cap, aux
 
@@ -76,9 +92,17 @@ def route(p, xt: torch.Tensor, cfg: ArchConfig):
 def apply_moe(p, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (y (B, S, D) in x's type, float32 aux loss)."""
     b, s, d = x.shape
-    n, e, k = b * s, cfg.n_experts, cfg.top_k
+    n, k = b * s, cfg.top_k
     xt = x.reshape(n, d)
     gate_vals, flat_ids, rank_in_e, keep, cap, aux = route(p, xt, cfg)
+    # This rank's experts: all of them, or on a mesh that splits them
+    # (``p.tp``) its block of them.
+    e = p["w_up"].shape[0]
+    if getattr(p, "tp", None) is not None:
+        flat_ids = flat_ids - p.tp.rank * e
+        keep = keep & (flat_ids >= 0) & (flat_ids < e)
+        flat_ids = flat_ids.clamp(0, e - 1)
+        xt, gate_vals = tp_enter(p, xt), tp_enter(p, gate_vals)
 
     # Kept pairs into their slots; dropped pairs into the spare slot ``cap``.
     buf = x.new_zeros((e, cap + 1, d))
@@ -99,4 +123,4 @@ def apply_moe(p, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, torch.
     gathered = torch.where(keep[:, None], gathered, torch.zeros((), dtype=x.dtype,
                                                                  device=x.device))
     y = (gathered.view(n, k, d) * gate_vals[..., None].to(x.dtype)).sum(dim=1)
-    return y.view(b, s, d), aux
+    return tp_exit(p, y.view(b, s, d)), aux

@@ -1,8 +1,8 @@
 """Tensor-parallel attention sharding plan (GQA-aware head padding).
 
-The port's copy of the reference's planner (``repro/models/plan.py``)
-without ``ShardingPlan.batch_spec``, which builds a JAX
-``PartitionSpec``; the port runs tp=1 only for now.
+The port's copy of the reference's planner (``repro/models/plan.py``);
+``ShardingPlan.batch_spec`` returns the port's spec tuple
+(``launch/sharding.py``) where the reference builds a ``PartitionSpec``.
 
 The planner reorganizes attention into ``slots`` = kv groups
 padded/replicated to a multiple of TP, with ``g_eff`` query heads per
@@ -109,6 +109,12 @@ class ShardingPlan:
     attention: AttentionPlan | None = None
     shard_experts: bool = True         # EP over tp_axis
     shard_vocab: bool = True
+
+    def batch_spec(self) -> tuple:
+        """The batch's spec entry: the data axes (one as its name)."""
+        if not self.dp_axes:
+            return (None,)
+        return (self.dp_axes if len(self.dp_axes) > 1 else self.dp_axes[0],)
 
 
 def make_plan(

@@ -1,8 +1,12 @@
 """Block assembly and whole-model forward / prefill / decode for every family.
 
 The port of ``repro/models/transformer.py``. The layer stacks are Python
-loops over per-layer parameter modules: there is no layer-stacked scan
-and no FSDP weight gathering (sharding comes in a later slice).
+loops over per-layer parameter modules: there is no layer-stacked scan.
+On a mesh (a model with ``spmd``, ``launch/spmd.py``) each layer reads
+its parameters through its rank's view, made inside the rematerialised
+layer (the reference's per-layer FSDP gather); the embedding, the head
+and the loss are vocab-parallel, and prefill and decode return the
+logits joined over the vocabulary.
 
 * ``dense``, ``moe`` and ``vlm`` run one stack of attention blocks; a
   MoE block's FFN is :func:`.moe.apply_moe` (plus arctic's parallel
@@ -53,7 +57,8 @@ from .moe import apply_moe, init_moe
 from .plan import AttentionPlan, ShardingPlan, plan_attention
 
 __all__ = ["init_model_params", "train_forward", "unread_in_training", "decode_step",
-           "init_caches", "prefill", "zamba_segments", "compute_dtype", "PORTED_FAMILIES"]
+           "init_caches", "prefill", "zamba_segments", "compute_dtype", "token_nll",
+           "PORTED_FAMILIES"]
 
 #: Every family of the reference's model zoo.
 PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio", "vlm")
@@ -253,8 +258,17 @@ def compute_dtype(p) -> torch.dtype:
     return getattr(p, "act_dtype", None) or p["embed"].dtype
 
 
+def _view(p, blk):
+    """``blk`` as the layer reads it: on a mesh, this rank's view."""
+    sp = getattr(p, "spmd", None)
+    return blk if sp is None else sp.view(blk)
+
+
 def _embed_in(p, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
     """Token ids -> embeddings in the activation dtype."""
+    sp = getattr(p, "spmd", None)
+    if sp is not None:
+        return sp.embed(tokens, compute_dtype(p))
     return p["embed"][tokens].to(compute_dtype(p))
 
 
@@ -268,17 +282,40 @@ def _inputs_in(p, cfg: ArchConfig, inputs: dict) -> torch.Tensor:
 
 
 def _lm_head(p, cfg: ArchConfig, x) -> torch.Tensor:
-    x = apply_norm(cfg.norm, p["final_norm"], x, cfg.norm_eps)
-    w = p["embed"].T if cfg.tie_embeddings else p["head"]
+    """Float32 logits; on a mesh, this rank's block of the vocabulary."""
+    sp = getattr(p, "spmd", None)
+    q = _view(p, p)
+    x = apply_norm(cfg.norm, q["final_norm"], x, cfg.norm_eps)
+    w = q["embed"].T if cfg.tie_embeddings else q["head"]
+    if sp is not None and sp.vocab is not None:
+        x = sp.vocab.enter(x)
     return (x @ w.to(x.dtype)).float()
 
 
-def _layer(fn, remat: bool, *args):
+def _full_logits(p, logits: torch.Tensor) -> torch.Tensor:
+    sp = getattr(p, "spmd", None)
+    return logits if sp is None else sp.full_logits(logits)
+
+
+def token_nll(p, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """-log softmax(logits)[label] per position (vocab-parallel on a mesh)."""
+    sp = getattr(p, "spmd", None)
+    if sp is not None:
+        return sp.vocab_nll(logits, labels)
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, labels.long()[..., None])[..., 0]
+
+
+def _layer(fn, remat: bool, p, blk, *args):
     """One layer of the stack, rematerialised when asked and autograd
-    records (the reference's ``jax.checkpoint`` of its scan body)."""
+    records (the reference's ``jax.checkpoint`` of its scan body). On a
+    mesh the layer reads ``blk`` through a view made inside the
+    rematerialised function, so the backward pass gathers again."""
+    sp = getattr(p, "spmd", None)
+    run = fn if sp is None else (lambda b, *a: fn(sp.view(b), *a))
     if remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+        return checkpoint(run, blk, *args, use_reentrant=False)
+    return run(blk, *args)
 
 
 def _forward(p, inputs: dict, cfg: ArchConfig, max_len: int | None, remat: bool = False):
@@ -308,36 +345,36 @@ def _forward(p, inputs: dict, cfg: ArchConfig, max_len: int | None, remat: bool 
     if fam in _ATTENTION_STACK:
         kv = []
         for blk in p["blocks"]:
-            x, k, v, a = _layer(_dense_block, remat, blk, x, cfg)
+            x, k, v, a = _layer(_dense_block, remat, p, blk, x, cfg)
             kv.append(kv_cache(k, v))
             aux = aux + a
         return x, {"kv": kv}, aux
     if fam == "audio":
         enc = x
         for blk in p["enc_blocks"]:
-            enc = _layer(_encoder_block, remat, blk, enc, cfg)
-        enc = apply_norm(cfg.norm, p["enc_norm"], enc, cfg.norm_eps)
+            enc = _layer(_encoder_block, remat, p, blk, enc, cfg)
+        enc = apply_norm(cfg.norm, _view(p, p)["enc_norm"], enc, cfg.norm_eps)
         x, kv = _embed_in(p, cfg, inputs["tokens"]), []
         for blk in p["blocks"]:
-            x, k, v, a = _layer(_decoder_block, remat, blk, x, enc, cfg)
+            x, k, v, a = _layer(_decoder_block, remat, p, blk, x, enc, cfg)
             kv.append(kv_cache(k, v))
             aux = aux + a
         return x, {"kv": kv, "enc": enc}, aux
     if fam == "ssm":
         xl = []
         for blk in p["xl_blocks"]:
-            x, cache = _xl_block(blk, x, cfg)
+            x, cache = _xl_block(_view(p, blk), x, cfg)
             xl.append(None if max_len is None else cache)
         return x, {"xl": xl}, aux
     mamba, shared_kv = [], []
     blocks, segs, off = p["blocks"], zamba_segments(cfg), 0
     for si, seg in enumerate(segs):
         for blk in blocks[off : off + seg]:
-            x, cache = _layer(_mamba_block, remat, blk, x, cfg)
+            x, cache = _layer(_mamba_block, remat, p, blk, x, cfg)
             mamba.append(None if max_len is None else cache)
         off += seg
         if si < len(segs) - 1:
-            x, k, v, a = _dense_block(p["shared"], x, cfg)
+            x, k, v, a = _dense_block(_view(p, p["shared"]), x, cfg)
             shared_kv.append(kv_cache(k, v))
             aux = aux + a
     return x, {"mamba": mamba, "shared_kv": shared_kv}, aux
@@ -345,7 +382,8 @@ def _forward(p, inputs: dict, cfg: ArchConfig, max_len: int | None, remat: bool 
 
 def train_forward(p, inputs: dict, cfg: ArchConfig, remat: bool = True):
     """-> (logits (B,S,V) float32, aux scalar), the stacks rematerialised
-    per layer when ``remat``. ``aux`` sums the MoE balance loss over the
+    per layer when ``remat``; on a mesh the logits are this rank's block
+    of the vocabulary (:func:`token_nll` reads them). ``aux`` sums the MoE balance loss over the
     layers (0 without experts), as the reference's scan carry does."""
     x, _, aux = _forward(p, inputs, cfg, None, remat)
     return _lm_head(p, cfg, x), aux
@@ -405,6 +443,7 @@ def decode_step(p, caches: dict, tokens: torch.Tensor, lengths: torch.Tensor,
     if fam in _ATTENTION_STACK or fam == "audio":
         kv = caches["kv"]
         for i, blk in enumerate(p["blocks"]):
+            blk = _view(p, blk)
             x, kv[i] = _dense_block_decode(blk, x, kv[i], lengths, cfg)
             if fam == "audio":
                 x = _cross(blk, x, caches["enc"], cfg)
@@ -413,18 +452,18 @@ def decode_step(p, caches: dict, tokens: torch.Tensor, lengths: torch.Tensor,
         segs, off = zamba_segments(cfg), 0
         for si, seg in enumerate(segs):
             for i in range(off, off + seg):
-                x, mamba[i] = _mamba_block_decode(p["blocks"][i], x, mamba[i], cfg)
+                x, mamba[i] = _mamba_block_decode(_view(p, p["blocks"][i]), x, mamba[i], cfg)
             off += seg
             if si < len(segs) - 1:
-                x, shared_kv[si] = _dense_block_decode(p["shared"], x, shared_kv[si],
-                                                       lengths, cfg)
+                x, shared_kv[si] = _dense_block_decode(_view(p, p["shared"]), x,
+                                                       shared_kv[si], lengths, cfg)
     elif fam == "ssm":
         xl = caches["xl"]
         for i, blk in enumerate(p["xl_blocks"]):
-            x, xl[i] = _xl_block_decode(blk, x, xl[i], cfg)
+            x, xl[i] = _xl_block_decode(_view(p, blk), x, xl[i], cfg)
     else:
         raise _unknown(fam)
-    return _lm_head(p, cfg, x)[:, 0, :], caches
+    return _full_logits(p, _lm_head(p, cfg, x)[:, 0, :]), caches
 
 
 def prefill(p, inputs: dict, cfg: ArchConfig, max_len: int):
@@ -434,4 +473,4 @@ def prefill(p, inputs: dict, cfg: ArchConfig, max_len: int):
     reference, the KV caches are bfloat16 (the activation dtype) whatever
     ``attention_options`` says."""
     x, caches, _ = _forward(p, inputs, cfg, max_len)
-    return _lm_head(p, cfg, x[:, -1:, :])[:, 0, :], caches
+    return _full_logits(p, _lm_head(p, cfg, x[:, -1:, :])[:, 0, :]), caches

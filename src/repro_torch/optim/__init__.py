@@ -3,7 +3,7 @@ gradient compression (the port of ``repro/optim``)."""
 
 from .adamw import AdamW, OptState, cosine_schedule, global_norm
 from .adamw8bit import AdamW8bit, Opt8State, dequantize_blockwise, quantize_blockwise
-from .compress import compress_int8, decompress_int8
+from .compress import compress_int8, decompress_int8, ef_roundtrip
 
 __all__ = [
     "AdamW",
@@ -14,6 +14,7 @@ __all__ = [
     "global_norm",
     "compress_int8",
     "decompress_int8",
+    "ef_roundtrip",
     "quantize_blockwise",
     "dequantize_blockwise",
 ]

@@ -11,6 +11,11 @@ in-place saves a copy of the model). The moments are updated in place
 too. The clip scale, the step count and the learning rate stay on the
 parameters' device: no host read per step. Not ``torch.optim.AdamW``,
 whose clip and schedule differ.
+
+On a mesh the parameters, gradients and moments are each rank's chunks
+(``launch/spmd.py``) and ``update`` takes the model's ``spmd`` as
+``shards``: the global norm then sums each element once over the ranks,
+a leaf held whole by several ranks counted once, not once per rank.
 """
 
 from __future__ import annotations
@@ -32,8 +37,11 @@ class OptState(NamedTuple):
     nu: Params
 
 
-def global_norm(tree: Params) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32."""
+def global_norm(tree: Params, shards=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in float32; with
+    ``shards`` (a model's ``spmd``) over the chunks of every rank."""
+    if shards is not None:
+        return shards.global_sq(tree).sqrt()
     leaves = [t.float() for t in tree.values()]
     if not leaves:
         return torch.zeros(())
@@ -55,9 +63,9 @@ def cosine_schedule(peak_lr: float, warmup_steps: int, total_steps: int,
     return lr
 
 
-def clip_scale(grads: Params, clip_norm: float) -> torch.Tensor:
+def clip_scale(grads: Params, clip_norm: float, shards=None) -> torch.Tensor:
     """``min(1, clip_norm / max(global_norm, 1e-9))`` as a device scalar."""
-    gn = global_norm(grads)
+    gn = global_norm(grads, shards)
     return (clip_norm / gn.clamp_min(1e-9)).clamp_max(1.0)
 
 
@@ -82,13 +90,15 @@ class AdamW:
         return torch.tensor(self.lr, dtype=torch.float32, device=step.device)
 
     @torch.no_grad()
-    def update(self, grads: Params, state: OptState, params: Params) -> tuple[Params, OptState]:
+    def update(self, grads: Params, state: OptState, params: Params,
+               shards=None) -> tuple[Params, OptState]:
         """-> (params, state): ``params`` updated in place and returned;
-        ``grads`` are scaled in place (the caller's gradients are spent)."""
+        ``grads`` are scaled in place (the caller's gradients are spent).
+        ``shards``: the model's ``spmd`` when these are a rank's chunks."""
         keys = list(params)
         step = state.step + 1
         g = [grads[k] if grads[k].dtype == torch.float32 else grads[k].float() for k in keys]
-        torch._foreach_mul_(g, clip_scale(grads, self.clip_norm))
+        torch._foreach_mul_(g, clip_scale(grads, self.clip_norm, shards))
         mu, nu = [state.mu[k] for k in keys], [state.nu[k] for k in keys]
         torch._foreach_mul_(mu, self.b1)
         torch._foreach_add_(mu, g, alpha=1 - self.b1)

@@ -68,6 +68,8 @@ def test_import_with_jax_blocked():
         "import repro_torch.launch.serve, repro_torch.launch.costs_h100\n"
         "import repro_torch.optim, repro_torch.data, repro_torch.ckpt\n"
         "import repro_torch.launch.train\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.sharding\n"
+        "import repro_torch.launch.spmd, repro_torch.launch.elastic\n"
         "import repro_torch.core.simulator, repro_torch.core.network\n"
         "import chip_smoke\n"
         "import runpy\n"
@@ -203,3 +205,28 @@ def test_every_model_module_is_checked():
     the sources checked for JAX and ``repro`` imports."""
     for name in ("attention", "moe", "xlstm", "transformer", "convert", "model"):
         assert PORT / "models" / f"{name}.py" in SOURCES, name
+
+
+def test_every_launch_module_is_checked():
+    """The launchers beyond one card are among the sources checked for
+    JAX and ``repro`` imports."""
+    for name in ("mesh", "sharding", "spmd", "elastic"):
+        assert PORT / "launch" / f"{name}.py" in SOURCES, name
+
+
+def test_mesh_entry_points_raise_without_a_process_group():
+    """``make_mesh`` and ``make_production_mesh`` need a process group
+    from the caller; without one they raise instead of running on one
+    rank unasked."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh, make_production_mesh
+
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="process group"):
+        make_mesh((1, 2), ("data", "model"), "cpu")
+    with pytest.raises(RuntimeError, match="process group"):
+        make_mesh((1, 1), ("data", "model"))
+    for multi_pod in (False, True):
+        with pytest.raises(RuntimeError, match="process group"):
+            make_production_mesh(multi_pod=multi_pod)

@@ -863,3 +863,32 @@ def test_cuda_smoke_train_gradients_match_cpu_float32(arch):
     for name, g in gc_.items():
         err = float((gg[name].cpu() - g).abs().max())
         assert err <= 1e-3 * max(float(g.norm()), 1e-6), (name, err)
+
+
+def test_two_ranks_on_the_card_equal_one_rank(tmp_path):
+    """Two ranks share the card on mesh (1, 2) (``gloo``: every collective
+    staged through host memory): one float32 step of smoke qwen1.5 equals
+    one rank's on the card (``chip_smoke.py`` phase 10 (b) at smoke size):
+    loss 1e-5 relative, gradients 1e-4 of their norm, each updated weight
+    within 2e-6 plus what the two clipped gradients' difference can move
+    Adam's first step (``tests/test_torch_train.py``'s bound)."""
+    _cuda()
+    import _torch_dist_jobs as J
+
+    toks = torch.as_tensor(np.random.default_rng(5).integers(0, 512, (2, 64)))
+    lr = 1e-3
+    res = J.spawn("card_step", 2, tmp_path, dict(arch="qwen1.5-4b", tokens=toks, lr=lr),
+                  timeout=300)
+    got, want = res["sharded"], res["one"]
+    assert res["launches"]["flash_attention"] > 0 and res["launches"]["flash_attention_bwd"] > 0
+    assert res["staged"]["all_reduce_sum"] > 0
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
+    norm = float(torch.stack([g.norm() for g in want["grads"].values()]).norm())
+    clip = min(1.0, 1.0 / norm)
+    eps = 1e-8
+    for k, w in want["grads"].items():
+        assert float((got["grads"][k] - w).abs().max()) <= 1e-4 * max(float(w.norm()), 1e-6), k
+        a, b = (got["grads"][k] * clip).double(), (w * clip).double()
+        drift = (a - b).abs() * eps / (torch.minimum(a.abs(), b.abs()) + eps) ** 2
+        bound = 2e-6 + lr * torch.where(a.sign() != b.sign(), torch.full_like(drift, 2.0), drift)
+        assert not bool(((got["new"][k] - want["new"][k]).abs().double() > bound).any()), k
