@@ -183,6 +183,36 @@ at the shapes one rank launches (``rank_shapes``). Two ranks on one card
 measure correctness and the cost of the collectives on one card, not
 scaling across cards.
 
+Phase 11 (after 10), long-context decode and every family's serving on
+a mesh, as two spawned ranks that share this card over ``gloo``: (a)
+zamba2-1.2B at full width and depth in ``long_500k``'s layout: batch 1,
+a 524,288-position cache on mesh (data 2, model 1), so each rank holds
+262,144 positions of each of the 6 shared-attention KV caches (bf16,
+seeded up to position 400,000, so both chunks hold keys; Mamba2 states
+seeded alike on both ranks); no prefill, as in the reference's cell; 16
+greedy decode steps, each rank's decode_attention with its log-sum-exp
+and the partial results merged over the data axis: logits finite, every
+rank launched the kernel; decode tokens/s, seconds a step, peak GiB a
+rank, bytes staged a step. (b) float32 against one rank holding the
+whole cache: zamba2 cut to 7 layers and qwen1.5-4b to 2, batch 1, cache
+8,192 on (2, 1), prompt 5,120 (every rank prefills it and keeps its
+half of the caches), 16 decode steps teacher-forced on one rank's greedy
+tokens: logits within 1e-4, the same greedy tokens. (c) zamba2-1.2B,
+xlstm-125m and whisper-small at full width on (1, 2): prefill 4 x 1024
+(whisper: its 1500 frames and a 384-token decoder prompt), 16 greedy
+steps, bf16 timings; then each at 2 layers (zamba2 at 7) in float32
+against one rank at (b)'s bars. Phase 1 adds decode_attention at a
+long-context rank's shape with ``return_lse`` (B=1, Hq=Hkv=32, S=262,144,
+D=64, bf16, length 200,000): out and lse against the plain version; and
+flash and decode at every other shape a rank of phase 11 launches,
+derived from its settings and the configs (``long_shapes``): (b)'s
+float32 prefill of 5,120 and its decode with ``return_lse`` over each
+rank's 4,096-position chunk (zamba2 32x64, qwen1.5 20x128), and (c)'s
+prefills and decodes with the heads split over the model axis (zamba2
+16x64, whisper 6x64 with its encoder), bf16 at full width and float32
+at the small runs' batch and prompt. The launch counts phase 11 checks
+come from the configs too (``shared_applications``, ``family_kernels``).
+
 Any failed check exits non-zero. The last lines are a JSON ``kernels``
 record and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -805,12 +835,24 @@ DECODE_SHAPES = {
     "main": (4, 32, 32, 2048, 64, [2048, 1025, 700, 1]),
     "gqa_long": (4, 32, 8, 16384, 128, [16384, 9000, 4097, 1]),
     "f32_gqa32_d128": (4, 32, 8, 2048, 128, [2048, 1100, 600, 1], "float32"),
+    "long_ctx_rank": (1, 32, 32, 262144, 64, [200000]),
 }
+#: Shapes launched, checked and timed with ``return_lse`` (the
+#: long-context layout's launch, phase 11: one rank's half of
+#: zamba2-1.2B's 524,288-position cache). Its lse is held to the plain
+#: version's at rtol 1e-5, atol 1e-4 (float32 sums in another order, and
+#: ex2.approx per key). Its inputs are drawn on the card: on an H100,
+#: uploading 2 GiB from numpy left ``torch.profiler`` dropping the kernel
+#: records of every other session for the rest of the process, and the
+#: profiler-based checks after it read those records.
+DECODE_LSE = frozenset({"long_ctx_rank"})
 
 
-def decode_records(flush, shapes: dict = DECODE_SHAPES, seed: int = 44) -> dict:
+def decode_records(flush, shapes: dict = DECODE_SHAPES, seed: int = 44,
+                   with_lse: frozenset = DECODE_LSE) -> dict:
     """decode_attention at ``shapes`` (:data:`DECODE_SHAPES` unless
-    given): checked against the plain version, one launch per wrapper
+    given; those in ``with_lse`` with ``return_lse``, out and lse
+    checked): checked against the plain version, one launch per wrapper
     call, then timed beside the plain version and ``scaled_dot_product_attention`` with a
     length mask (``enable_gqa``). The bound counts each valid K/V row of
     the Hkv heads once, plus q and out. ``ms`` and ``library_ms`` flush
@@ -843,15 +885,27 @@ def decode_records(flush, shapes: dict = DECODE_SHAPES, seed: int = 44) -> dict:
     out = {}
     for key, (b, hq, hkv, s, d, lengths, *dtype) in shapes.items():
         dt = getattr(torch, dtype[0]) if dtype else torch.bfloat16
-        q = torch.as_tensor(rng.normal(0, 1, (b, hq, d)).astype(np.float32), device=dev).to(dt)
-        k, v = (torch.as_tensor(rng.normal(0, 1, (b, hkv, s, d)).astype(np.float32),
-                                device=dev).to(dt) for _ in range(2))
+        lse = key in with_lse
+        if lse:  # drawn on the card: see DECODE_LSE
+            gen = torch.Generator(dev).manual_seed(seed)
+            q, k, v = (torch.randn(shp, generator=gen, device=dev, dtype=dt)
+                       for shp in ((b, hq, d), (b, hkv, s, d), (b, hkv, s, d)))
+        else:
+            q = torch.as_tensor(rng.normal(0, 1, (b, hq, d)).astype(np.float32),
+                                device=dev).to(dt)
+            k, v = (torch.as_tensor(rng.normal(0, 1, (b, hkv, s, d)).astype(np.float32),
+                                    device=dev).to(dt) for _ in range(2))
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         n0 = DA.launches
-        got = DA.decode_attention_cuda(q, k, v, lens)
+        got = DA.decode_attention_cuda(q, k, v, lens, return_lse=lse)
         per_call = DA.launches - n0
         check(per_call == 1, f"decode_attention {key}: {per_call} launches for one call")
-        want = ref.decode_attention_ref(q, k, v, lens)
+        want = ref.decode_attention_ref(q, k, v, lens, return_lse=lse)
+        lse_err = None
+        if lse:
+            (got, got_lse), (want, want_lse) = got, want
+            lse_err = max_err(got_lse, want_lse, 1e-5, 1e-4, f"decode_attention {key} lse")
+            del got_lse, want_lse
         if dt == torch.float32:  # summation order only, as the float32 GQA check
             err = max_err(got, want, 3e-5, 3e-5, f"decode_attention {key} shape")
         else:
@@ -863,14 +917,17 @@ def decode_records(flush, shapes: dict = DECODE_SHAPES, seed: int = 44) -> dict:
         max_err(sdpa()[:, :, 0], want, *bf16_tol, f"sdpa length mask {key} (yardstick)")
         del want, got
         valid, item = sum(lengths), q.element_size()
-        bms, by = bound(2 * b * hq * d * item + 2 * valid * hkv * d * item + 4 * b,
-                        4.0 * valid * hq * d)
-        call = lambda q=q, k=k, v=v, lens=lens: DA.decode_attention_cuda(q, k, v, lens)  # noqa: E731
+        bms, by = bound(2 * b * hq * d * item + 2 * valid * hkv * d * item + 4 * b
+                        + (4 * b * hq if lse else 0), 4.0 * valid * hq * d)
+        call = lambda q=q, k=k, v=v, lens=lens, lse=lse: DA.decode_attention_cuda(  # noqa: E731
+            q, k, v, lens, return_lse=lse)
         rec = dict(
             shape=[b, hq, hkv, s, d], dtype=str(dt).removeprefix("torch."), lengths=lengths,
+            return_lse=lse, lse_max_abs_err=lse_err,
             max_abs_err=err, launches_per_call=per_call,
             ms=time_ms(call, 50, flush),
-            plain_ms=time_ms(lambda: ref.decode_attention_ref(q, k, v, lens), 5, flush),
+            plain_ms=time_ms(lambda: ref.decode_attention_ref(q, k, v, lens, return_lse=lse), 5,
+                             flush),
             bound_ms=bms, bound_by=by, library_ms=time_ms(sdpa, 50, flush))
         rec["ms_clean_l2"] = time_ms(call, 50, clean)
         rec["library_ms_clean_l2"] = time_ms(sdpa, 50, clean)
@@ -884,7 +941,7 @@ def decode_records(flush, shapes: dict = DECODE_SHAPES, seed: int = 44) -> dict:
             f"{rec['plain_ms']:.4f}; L2 flushed clean {rec['ms_clean_l2']:.4f}, SDPA "
             f"{rec['library_ms_clean_l2']:.4f}, profiler {rec['device_ms']}, host "
             f"{rec['host_us_per_call']:.1f} us per call), {per_call} launch per call, "
-            f"max abs err {err:.3g}, "
+            f"max abs err {err:.3g}" + (f", lse max abs err {lse_err:.3g}, " if lse else ", ") +
             f"plan {rec['plan']}")
         out[key] = rec
     return out
@@ -927,12 +984,62 @@ def rank_shapes() -> tuple[dict, dict]:
     return {key: (b, h, hkv, n, d, True)}, {key: (DIST_SERVE["batch"], h, hkv, m, d, [m] * b)}
 
 
+def long_shapes() -> tuple[dict, dict, frozenset]:
+    """The flash_attention and decode_attention shapes one rank of phase
+    11 launches, from ``LONG_SMALL``, ``MESH_FAMILIES``, ``MESH_SERVE``,
+    the two meshes and each published config. (b): each model's float32
+    prefill of the whole prompt (every rank prefills it) and its decode
+    with ``return_lse`` over its chunk of the cache at the last step:
+    the first rank's chunk full, the second's prefix. (c): each family's
+    prefill (whisper: the encoder over its frames, non-causal, and the
+    decoder's prompt) and its decode over its cache at the last step,
+    its heads split over the model axis as the plan pads them; bf16 at
+    full width, then float32 at the small run's batch and prompt. (a)'s
+    launch is ``DECODE_SHAPES["long_ctx_rank"]``. -> (flash (B, H, Hkv,
+    S, D, causal, dtype), decode (B, Hq, Hkv, S, D, lengths, dtype), the
+    decode keys launched with ``return_lse``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.plan import plan_attention
+
+    flash, decode, lse = {}, {}, set()
+    b = LONG_SMALL
+    ranks, chunk = LONG_MESH[0], b["max_len"] // LONG_MESH[0]
+    valid = b["prompt"] + b["steps"]  # the last step attends to its own row too
+    for arch in b["layers"]:
+        cfg = get_config(arch)
+        heads, d = (cfg.n_heads, cfg.n_kv_heads), cfg.resolved_head_dim
+        flash[f"{arch} (b) prefill"] = (1, *heads, b["prompt"], d, True, "float32")
+        for r in range(ranks):
+            key = f"{arch} (b) rank {r}"
+            decode[key] = (1, *heads, chunk, d, [min(chunk, max(0, valid - r * chunk))],
+                           "float32")
+            lse.add(key)
+    tp, sv = FAMILY_MESH[1], MESH_SERVE
+    for arch, spec in MESH_FAMILIES.items():
+        cfg = get_config(arch)
+        if cfg.family == "ssm":  # xLSTM: no attention layers
+            continue
+        plan = plan_attention(cfg, tp)
+        heads, d = (plan.q_eff // tp, plan.slots // tp), cfg.resolved_head_dim
+        for tag, bsz, n, m, dt in (("", sv["batch"], spec["prompt"], spec["max_len"], "bfloat16"),
+                                   (" f32", sv["small_batch"], sv["small_prompt"],
+                                    sv["small_prompt"] + sv["steps"], "float32")):
+            key = f"{arch} (c) rank{tag}"
+            if cfg.family == "audio":
+                flash[f"{key} encoder"] = (bsz, *heads, cfg.encoder_frames, d, False, dt)
+            flash[key] = (bsz, *heads, n, d, True, dt)
+            decode[key] = (bsz, *heads, m, d, [n + sv["steps"]] * bsz, dt)
+    return flash, decode, frozenset(lse)
+
+
 def flash_family_records(flush, gpu, normal, bf16_tol, shapes: dict) -> dict:
-    """flash_attention (bfloat16) at ``shapes`` (phase 9's), against
-    the plain version at the serving forward's bar, timed beside it and
-    beside ``scaled_dot_product_attention`` (``enable_gqa``). The bound
-    counts q, k, v and out once, and the products of the unmasked
-    scores (a causal row of S keys attends to (S + 1) / 2 of them)."""
+    """flash_attention at ``shapes`` (B, H, Hkv, S, D, causal[, dtype]),
+    bfloat16 unless given, against the plain version at the serving
+    forward's bar (float32: phase 1's 2e-5, summation order only), timed
+    beside it and beside ``scaled_dot_product_attention``
+    (``enable_gqa``). The bound counts q, k, v and out once, and the
+    products of the unmasked scores (a causal row of S keys attends to
+    (S + 1) / 2 of them)."""
     import torch
     import torch.nn.functional as F
 
@@ -940,24 +1047,28 @@ def flash_family_records(flush, gpu, normal, bf16_tol, shapes: dict) -> dict:
     from repro_torch.kernels import ref
 
     out = {}
-    for key, (b, h, hkv, s, d, causal) in shapes.items():
-        q = gpu(normal(b, h, s, d), torch.bfloat16)
-        k, v = (gpu(normal(b, hkv, s, d), torch.bfloat16) for _ in range(2))
+    for key, (b, h, hkv, s, d, causal, *dtype) in shapes.items():
+        dt = getattr(torch, dtype[0]) if dtype else torch.bfloat16
+        f32 = dt == torch.float32
+        q = gpu(normal(b, h, s, d), dt)
+        k, v = (gpu(normal(b, hkv, s, d), dt) for _ in range(2))
         want = ref.flash_attention_ref(q, k, v, causal)
-        err = max_err(FA.flash_attention_cuda(q, k, v, causal), want, *bf16_tol,
-                      f"flash_attention {key}")
+        err = max_err(FA.flash_attention_cuda(q, k, v, causal), want,
+                      *((2e-5, 2e-5) if f32 else bf16_tol), f"flash_attention {key}")
         sdpa = lambda q=q, k=k, v=v, c=causal: F.scaled_dot_product_attention(  # noqa: E731
             q, k, v, is_causal=c, enable_gqa=True)
         max_err(sdpa(), want, *bf16_tol, f"sdpa {key} (yardstick)")
         del want
         pairs = b * h * s * ((s + 1) / 2 if causal else s)
-        bms, by = bound(2 * (b * h + b * hkv) * s * d * 2, 4.0 * pairs * d, BF16_FLOPS)
+        bms, by = bound(2 * (b * h + b * hkv) * s * d * q.element_size(), 4.0 * pairs * d,
+                        F32_FLOPS if f32 else BF16_FLOPS)
         call = lambda q=q, k=k, v=v, c=causal: FA.flash_attention_cuda(q, k, v, c)  # noqa: E731
         out[key] = dict(
-            shape=[b, h, hkv, s, d], causal=causal, max_abs_err=err, ms=time_ms(call, 20, flush),
+            shape=[b, h, hkv, s, d], causal=causal, dtype=str(dt).removeprefix("torch."),
+            max_abs_err=err, ms=time_ms(call, 20, flush),
             plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, causal), 3, flush),
             bound_ms=bms, bound_by=by, library_ms=time_ms(sdpa, 20, flush))
-        log(f"  flash_attention {key} B={b} H={h} Hkv={hkv} S={s} D={d} bf16 causal={causal}: "
+        log(f"  flash_attention {key} B={b} H={h} Hkv={hkv} S={s} D={d}: "
             + ", ".join(f"{n}={x:.4g}" if isinstance(x, float) else f"{n}={x}"
                         for n, x in out[key].items()))
     return out
@@ -1039,8 +1150,9 @@ def phase_lm_kernels() -> dict:
     del want
     fam_flash, fam_decode = family_shapes()
     rank_flash, rank_decode = rank_shapes()
-    results["flash_attention"].update(flash_family_records(flush, gpu, normal, bf16_tol,
-                                                           {**fam_flash, **rank_flash}))
+    long_flash, long_decode, long_lse = long_shapes()
+    results["flash_attention"].update(flash_family_records(
+        flush, gpu, normal, bf16_tol, {**fam_flash, **rank_flash, **long_flash}))
 
     # decode_attention: GQA check, then the decode shapes (ragged lengths).
     q = gpu(normal(3, 8, 64))
@@ -1049,7 +1161,8 @@ def phase_lm_kernels() -> dict:
     e = max_err(DA.decode_attention_cuda(q, k, v, lens), ref.decode_attention_ref(q, k, v, lens),
                 3e-5, 3e-5, "decode_attention GQA")
     log(f"  decode_attention GQA Hq=8 Hkv=2 S=777 float32: max abs err {e:.3g}")
-    recs = decode_records(flush, {**DECODE_SHAPES, **fam_decode, **rank_decode})
+    recs = decode_records(flush, {**DECODE_SHAPES, **fam_decode, **rank_decode, **long_decode},
+                          with_lse=DECODE_LSE | long_lse)
     results["decode_attention"] = dict(recs.pop("main"), **recs)
 
     # mamba2_chunk_scan: rounded multiply, then add, as the plain version.
@@ -2966,7 +3079,7 @@ def _dist_rank(rank: int, world: int, init: str, job: str, layers: int, out_dir:
     dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=DIST_TIMEOUT))
     try:
-        jobs = {"tp": _dist_job_tp, "elastic": _dist_job_elastic}
+        jobs = {"tp": _dist_job_tp, "elastic": _dist_job_elastic, "long": _dist_job_long}
         res = jobs[job](rank, layers)
         torch.save(res, Path(out_dir) / f"{job}_{rank}.pt")
     finally:
@@ -3093,6 +3206,326 @@ def phase_distributed() -> dict:
                               decode_attention=d["launches"]["decode_attention"]))
 
 
+# --------------------------------------------------------------------------
+# phase 11: long-context decode and every family's serving on a mesh
+# --------------------------------------------------------------------------
+
+#: Phase 11's meshes: (a) and (b) on the data axis, (c) on the model axis.
+LONG_MESH, FAMILY_MESH = (2, 1), (1, 2)
+#: (a): zamba2-1.2B whole in ``long_500k``'s layout (batch 1, the cache's
+#: sequence over the data axis of (2, 1)), its KV caches seeded up to
+#: ``filled`` positions; no prefill, as in the reference's cell.
+LONG = dict(arch="zamba2-1.2b", max_len=524288, filled=400000, steps=16, seed=31)
+#: (b): float32, batch 1, against one rank holding the whole cache; the
+#: prompt runs past the ranks' boundary at max_len / 2 (5,120 tokens: the
+#: hybrid family's chunked scan takes whole chunks of 128). Depths:
+#: zamba2 with one shared-attention application, qwen1.5-4b at 2 layers.
+LONG_SMALL = dict(layers={"zamba2-1.2b": 7, "qwen1.5-4b": 2}, max_len=8192, prompt=5120,
+                  steps=16, seed=32)
+#: (c): the families whose serving on a mesh is new, at full width on
+#: (1, 2), bf16; then at ``small_layers`` in float32 against one rank.
+MESH_FAMILIES = {
+    "zamba2-1.2b": dict(prompt=1024, max_len=1040, small_layers=7),
+    "xlstm-125m": dict(prompt=1024, max_len=1040, small_layers=2),
+    "whisper-small": dict(prompt=384, max_len=448, small_layers=2),
+}
+MESH_SERVE = dict(batch=4, steps=16, small_batch=2, small_prompt=128, seed=33)
+#: Logits of a mesh against one rank, float32 (phase 10 (d) reads ~1e-5).
+MESH_TOL = 1e-4
+
+
+def _decode_chain(model, inputs: dict, batch: int, n: int, max_len: int, steps: int,
+                  forced=None):
+    """Prefill ``inputs`` (on a mesh, the rank keeps its chunk of the
+    caches), then ``steps`` decode steps in the caches' layout, greedy or
+    on the ``forced`` tokens. -> (logits (steps + 1, B, V), the tokens
+    fed)."""
+    import torch
+
+    from repro_torch.train import make_serve_step
+
+    logits, caches = model.prefill(inputs, max_len)
+    sp = getattr(model, "spmd", None)
+    lengths = torch.full((batch,), n, dtype=torch.int32, device=logits.device)
+    serve = make_serve_step(model, None if sp is None else sp.serve_layout(batch, max_len))
+    out, fed = [logits], []
+    for i in range(steps):
+        t = logits.argmax(-1).to(torch.int32) if forced is None else forced[i]
+        fed.append(t)
+        _, logits, caches, lengths = serve(caches, t, lengths)
+        out.append(logits)
+    return torch.stack(out), fed
+
+
+def _against_one_rank(rank: int, mesh, cfg, inputs: dict, batch: int, n: int, max_len: int,
+                      steps: int, seed: int, what: str) -> dict:
+    """float32: rank 0 alone, greedy, holding the whole caches; then
+    every rank of ``mesh`` teacher-forced on its tokens. Rank 0 checks
+    the logits within ``MESH_TOL`` and the greedy tokens
+    (``_greedy_agrees``). -> the launches, and on rank 0 the error."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops as K
+    from repro_torch.models import build_model
+
+    dev = torch.device("cuda", 0)
+    want = [None]
+    if rank == 0:
+        want = list(_decode_chain(build_model(cfg, device=dev, seed=seed).float(), inputs,
+                                  batch, n, max_len, steps))
+        torch.cuda.empty_cache()
+    obj = [None if rank else [t.cpu() for t in want[1]]]
+    dist.broadcast_object_list(obj, src=0)
+    K.reset_launch_counts()
+    got, _ = _decode_chain(build_model(cfg, device=dev, seed=seed, mesh=mesh).float(), inputs,
+                           batch, n, max_len, steps, forced=[t.to(dev) for t in obj[0]])
+    out = {"launches": K.launch_counts()}
+    if rank == 0:
+        err = float((got - want[0]).abs().max())
+        check(err <= MESH_TOL, f"{what}: logits {err:.3g} from one rank's")
+        _greedy_agrees(got, want[0], err, what)
+        out["logits_max_abs_err"] = err
+    del got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _long_a(rank: int, mesh) -> dict:
+    """(a): ``LONG`` on ``mesh`` (2, 1)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as K
+    from repro_torch.models import build_model
+    from repro_torch.train import make_serve_step
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config(LONG["arch"])
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=dev, seed=LONG["seed"], mesh=mesh)
+    caches = model.init_caches(1, LONG["max_len"])
+    sp = model.spmd
+    layout = sp.serve_layout(1, LONG["max_len"])
+    check(layout.seq is not None and not layout.rows_split,
+          "phase 11 (a): not the long-context layout")
+    chunk = caches["shared_kv"][0]["k"].shape[2]
+    filled = max(0, min(chunk, LONG["filled"] - sp.data.rank * chunk))
+    # Each rank its positions of one seeded cache; the Mamba2 states alike on every rank.
+    gen = torch.Generator(dev).manual_seed(LONG["seed"] + 1 + sp.data.rank)
+    for kv in caches["shared_kv"]:
+        for t in kv.values():
+            t[:, :, :filled].normal_(generator=gen)
+    gen.manual_seed(LONG["seed"])
+    for m in caches["mamba"]:
+        for t in m.values():
+            t.normal_(0.0, 0.1, generator=gen)
+    cache_gib = sum(t.numel() * t.element_size() for kv in caches["shared_kv"]
+                    for t in kv.values()) / 2**30
+    step = make_serve_step(model, layout)
+    nxt = torch.ones((1,), dtype=torch.int32, device=dev)
+    lengths = torch.full((1,), LONG["filled"], dtype=torch.int32, device=dev)
+    nxt, logits, caches, lengths = step(caches, nxt, lengths)  # warm-up: cuBLAS, allocator
+    comm = mesh.comm("data")
+    comm.bytes.clear()
+    comm.staged.clear()
+    K.reset_launch_counts()
+    finite = torch.isfinite(logits).all()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LONG["steps"]):
+        nxt, logits, caches, lengths = step(caches, nxt, lengths)
+        finite &= torch.isfinite(logits).all()
+    tokens = nxt.tolist()  # the host read ends the timed loop
+    decode_s = time.perf_counter() - t0
+    n = LONG["steps"]
+    out = dict(decode_s=decode_s, step_s=decode_s / n, tokens_per_s=n / decode_s,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30, cache_gib_per_rank=cache_gib,
+               positions_per_rank=chunk, filled_on_rank=filled, launches=K.launch_counts(),
+               staged_bytes_per_step=sum(comm.staged.values()) / n,
+               collective_bytes_per_step={k: v / n for k, v in comm.bytes.items()},
+               finite=bool(finite), last_tokens=tokens)
+    del model, caches, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _long_b(rank: int, mesh) -> dict:
+    """(b): ``LONG_SMALL`` on ``mesh`` (2, 1) against one rank."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+
+    dev = torch.device("cuda", 0)
+    b = LONG_SMALL
+    out = {}
+    for arch, layers in b["layers"].items():
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        toks = torch.as_tensor(np.random.default_rng(b["seed"]).integers(
+            0, cfg.vocab_size, (1, b["prompt"]))).to(dev)
+        out[arch] = _against_one_rank(
+            rank, mesh, cfg, {"tokens": toks}, 1, b["prompt"], b["max_len"], b["steps"],
+            b["seed"], f"phase 11 (b) {arch} {layers} layers, cache {b['max_len']} on (2, 1)")
+    return out
+
+
+def _mesh_families(rank: int, mesh) -> dict:
+    """(c): each of ``MESH_FAMILIES`` on ``mesh`` (1, 2): bf16 at full
+    width (a warm-up, then prefill and greedy decode timed), then float32
+    at ``small_layers`` against one rank."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as K
+    from repro_torch.models import build_model
+    from repro_torch.train import make_serve_step
+
+    dev = torch.device("cuda", 0)
+    sv = MESH_SERVE
+    out = {}
+    for arch, spec in MESH_FAMILIES.items():
+        cfg = get_config(arch)
+        b, n, steps = sv["batch"], spec["prompt"], sv["steps"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(cfg, device=dev, seed=sv["seed"], mesh=mesh)
+        inputs = _family_inputs(cfg, b, n, torch.Generator(dev).manual_seed(sv["seed"]), dev)
+        warm = {k: v[:, :128] if k == "tokens" else v for k, v in inputs.items()}
+        model.prefill(warm, 128 + 2)  # first cuBLAS use, allocator
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(inputs, spec["max_len"])
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        step = make_serve_step(model)
+        nxt = logits.argmax(-1).to(torch.int32)
+        lengths = torch.full((b,), n, dtype=torch.int32, device=dev)
+        finite = torch.isfinite(logits).all()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            nxt, logits, caches, lengths = step(caches, nxt, lengths)
+            finite &= torch.isfinite(logits).all()
+        nxt.tolist()  # the host read ends the timed loop
+        decode_s = time.perf_counter() - t0
+        res = dict(prefill_s=prefill_s, decode_s=decode_s,
+                   decode_tokens_per_s=b * steps / decode_s,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   launches=K.launch_counts(), finite=bool(finite))
+        del model, caches, logits, inputs
+        gc.collect()
+        torch.cuda.empty_cache()
+        small = dataclasses.replace(cfg, n_layers=spec["small_layers"],
+                                    encoder_layers=min(cfg.encoder_layers, 2))
+        sb, sn = sv["small_batch"], sv["small_prompt"]
+        inputs = _family_inputs(small, sb, sn, torch.Generator(dev).manual_seed(sv["seed"]), dev)
+        res["small"] = _against_one_rank(
+            rank, mesh, small, inputs, sb, sn, sn + steps, steps, sv["seed"],
+            f"phase 11 (c) {arch} {spec['small_layers']} layers on (1, 2)")
+        out[arch] = res
+    return out
+
+
+def _dist_job_long(rank: int, layers: int) -> dict:
+    """Phase 11 on 2 ranks: (a) and (b) on (2, 1), (c) on (1, 2)."""
+    from repro_torch.launch.mesh import make_mesh
+
+    del layers
+    by_data = make_mesh(LONG_MESH, ("data", "model"), "cuda")
+    by_model = make_mesh(FAMILY_MESH, ("data", "model"), "cuda")
+    res = {"seconds": {}}
+    for part, run in (("a", lambda: _long_a(rank, by_data)),
+                      ("b", lambda: _long_b(rank, by_data)),
+                      ("c", lambda: _mesh_families(rank, by_model))):
+        t0 = time.perf_counter()
+        res[part] = run()
+        res["seconds"][part] = time.perf_counter() - t0
+    return res
+
+
+def shared_applications(cfg) -> int:
+    """The shared-attention applications of a hybrid config (one after
+    every Mamba2 segment but the last): its decode_attention calls a
+    decode step."""
+    from repro_torch.models.transformer import zamba_segments
+
+    return len(zamba_segments(cfg)) - 1
+
+
+def family_kernels(cfg) -> tuple[str, ...]:
+    """The LM kernels a prefill and decode of ``cfg``'s family launch:
+    the Mamba2 scan in the hybrid family, the two attention kernels in
+    every family but xLSTM's (no attention layer)."""
+    scan = ("mamba2_chunk_scan",) if cfg.family == "hybrid" else ()
+    return scan + (() if cfg.family == "ssm" else ("flash_attention", "decode_attention"))
+
+
+def phase_long_context() -> dict:
+    """Phase 11: long-context decode (the caches' sequence over the data
+    axis, decode_attention's log-sum-exp merged across ranks) and the
+    hybrid, xLSTM and whisper families served on a mesh, by two ranks
+    that share the card over ``gloo``."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = spawn_ranks("long", 2, 0)
+    seconds = time.perf_counter() - t0
+    from repro_torch.configs import get_config
+
+    a = [r["a"] for r in res]
+    steps = LONG["steps"]
+    calls = shared_applications(get_config(LONG["arch"])) * steps
+    for i, r in enumerate(a):
+        check(r["finite"], f"phase 11 (a): rank {i} non-finite logits")
+        check(r["launches"]["decode_attention"] == calls,
+              f"phase 11 (a): rank {i} launched decode_attention "
+              f"{r['launches']['decode_attention']} times, not {calls}")
+        check(r["filled_on_rank"] > 0, f"phase 11 (a): rank {i} holds no key")
+    log(f"  (a) {LONG['arch']} whole, batch 1, cache {LONG['max_len']} on (2, 1): "
+        f"{a[0]['positions_per_rank']} positions a rank ({[r['filled_on_rank'] for r in a]} "
+        f"seeded), {a[0]['cache_gib_per_rank']:.2f} GiB of KV a rank; {steps} greedy steps "
+        f"{a[0]['decode_s']:.4f} s = {a[0]['tokens_per_s']:.2f} tokens/s, "
+        f"{a[0]['step_s']:.4f} s a step; peak {[round(r['peak_gib'], 2) for r in a]} GiB a "
+        f"rank; staged {a[0]['staged_bytes_per_step']:.4g} bytes a step and rank, "
+        f"collectives {a[0]['collective_bytes_per_step']}; decode_attention launches with lse "
+        f"{[r['launches']['decode_attention'] for r in a]}; tokens {a[0]['last_tokens']}")
+    for arch, r in res[0]["b"].items():
+        check(all(x["b"][arch]["launches"]["decode_attention"] > 0 for x in res),
+              f"phase 11 (b) {arch}: a rank launched no decode_attention")
+        log(f"  (b) {arch} {LONG_SMALL['layers'][arch]} layers float32, cache "
+            f"{LONG_SMALL['max_len']} on (2, 1), prompt {LONG_SMALL['prompt']}: logits "
+            f"{r['logits_max_abs_err']:.3g} from one rank's over {LONG_SMALL['steps'] + 1} "
+            f"steps; launches {r['launches']}")
+    c = res[0]["c"]
+    for arch, r in c.items():
+        check(all(x["c"][arch]["finite"] for x in res),
+              f"phase 11 (c) {arch}: non-finite logits")
+        for name in family_kernels(get_config(arch)):
+            check(all(x["c"][arch]["launches"][name] > 0 for x in res),
+                  f"phase 11 (c) {arch}: a rank launched no {name}")
+        log(f"  (c) {arch} full width on (1, 2), bf16: prefill {MESH_SERVE['batch']} x "
+            f"{MESH_FAMILIES[arch]['prompt']} {r['prefill_s']:.4f} s, {MESH_SERVE['steps']} "
+            f"greedy steps {r['decode_tokens_per_s']:.1f} tokens/s, peak "
+            f"{[round(x['c'][arch]['peak_gib'], 2) for x in res]} GiB a rank, launches "
+            f"{r['launches']}; {MESH_FAMILIES[arch]['small_layers']} layers float32: logits "
+            f"{r['small']['logits_max_abs_err']:.3g} from one rank's")
+    log(f"  phase 11: {seconds:.1f} s; seconds by part (rank 0) {json.dumps(res[0]['seconds'])}")
+    return dict(a=a, b=res[0]["b"], c=c, seconds=seconds, part_seconds=res[0]["seconds"],
+                launches=dict(decode_attention=a[0]["launches"]["decode_attention"],
+                              flash_attention=sum(r["launches"]["flash_attention"]
+                                                  for r in c.values())))
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
@@ -3138,8 +3571,11 @@ def main() -> int:
 
     K.reset_launch_counts()
     kres = phase_kernels(tiles[0])
-    kres.update(phase_lm_kernels())
+    # The backward kernels' profiler counts come before the LM rows' many
+    # profiler sessions and multi-GB plain versions: after those, one
+    # whole run saw the profiler drop a kernel record in every session.
     kres.update(phase_backward_kernels())
+    kres.update(phase_lm_kernels())
     kres["flash_attention"]["build"] = flash_build
     kres["mamba2_chunk_scan_bwd"]["build"] = scan_bwd_build
     phase1_counts = K.launch_counts()
@@ -3178,9 +3614,15 @@ def main() -> int:
     log(f"phase 10: ranks that share this card over gloo: (a) {DIST}, (b) {DIST_SMALL}, "
         f"(c) {DIST_EF}, (d) {DIST_SERVE}, (e) {DIST_ELASTIC}")
     distributed = phase_distributed()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 11: long-context decode and serving on a mesh, ranks that share this card: "
+        f"(a) {LONG}, (b) {LONG_SMALL}, (c) {MESH_FAMILIES} {MESH_SERVE}")
+    long_ctx = phase_long_context()
 
     records = []
-    family_keys = [key for shapes in (*family_shapes(), *rank_shapes()) for key in shapes]
+    family_keys = [key for shapes in (*family_shapes(), *rank_shapes(), *long_shapes()[:2])
+                   for key in shapes]
     for name in REPLACES:
         res = kres[name]
         if PATHS[name] == "wsi":
@@ -3216,6 +3658,10 @@ def main() -> int:
             n = distributed["launches"][name]
             check(n > 0, f"{name}: no launch in phase 10's rank 0")
             records[-1]["launches_distributed_rank0"] = n
+        if name in ("flash_attention", "decode_attention"):
+            n = long_ctx["launches"][name]
+            check(n > 0, f"{name}: no launch in phase 11's rank 0")
+            records[-1]["launches_long_context_rank0"] = n
         if PATHS[name] == "training":
             records[-1]["tpu_counterpart"] = None  # a backward kernel: the TPU had none
     log("kernels " + "; ".join(

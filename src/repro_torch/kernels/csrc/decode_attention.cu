@@ -8,7 +8,13 @@
 // with q (B, HQ, D), k/v (B, HKV, S, D), group = HQ / HKV, lengths (B,)
 // int32 (clamped to [0, S]; a length of 0 gives zeros, as the TPU kernel
 // does), all contiguous and 16-byte aligned, float32 or bfloat16; the
-// output has q's type.
+// output has q's type. Where the caller gives it a (B, HQ) float32 `lse`,
+// the block that writes out[b, h] also writes the row's log-sum-exp
+// ln sum_s exp(q . k_s * scale) there, in natural-log units (-inf for a
+// length of 0): the running max and sum are in base-2 units of the
+// scaled scores, so lse = m ln 2 + ln l. A rank that holds one chunk of
+// a cache's sequence returns (out, lse), and the ranks' partial results
+// merge on them (launch/spmd.py, `merge_partials`).
 //
 // Bound on the card: bytes. Each valid K and V row of each KV head must
 // be read once, plus q and out: at B=4, HQ=HKV=32, D=64, bf16, lengths
@@ -87,6 +93,7 @@ constexpr int MAX_SPLITS = 256;
 constexpr int ROWS = 16;                  // query heads per block on the tensor cores
 constexpr float NEG = -1.0e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 static_assert(STAGES >= 1 && STAGES <= 4, "cp_async_wait_upto takes 0..3");
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
@@ -178,10 +185,10 @@ struct Block {
 };
 
 // The block's place; false when it has nothing to do (a length of 0 has
-// been answered with zeros by split 0).
+// been answered with zeros, and an lse of -inf, by split 0).
 template <typename T, int D>
-__device__ __forceinline__ bool locate(Block& s, const int* lengths, T* out, int HQ, int HKV,
-                                       int S, int split_keys, int gb) {
+__device__ __forceinline__ bool locate(Block& s, const int* lengths, T* out, float* lse, int HQ,
+                                       int HKV, int S, int split_keys, int gb) {
   s.sp = blockIdx.x;
   s.b = blockIdx.z;
   const int group = HQ / HKV, nhc = (group + gb - 1) / gb;
@@ -192,8 +199,10 @@ __device__ __forceinline__ bool locate(Block& s, const int* lengths, T* out, int
   s.row0 = (static_cast<long long>(s.b) * HQ + s.hk * group + hc * gb) * D;
   const int len = min(max(__ldg(lengths + s.b), 0), S);
   if (len == 0) {
-    if (s.sp == 0)
+    if (s.sp == 0) {
       for (int i = threadIdx.x; i < s.gn * D; i += THREADS) out[s.row0 + i] = from_f<T>(0.f);
+      if (lse != nullptr && threadIdx.x < s.gn) lse[s.row0 / D + threadIdx.x] = -INFINITY;
+    }
     return false;
   }
   s.nact = (len + split_keys - 1) / split_keys;  // splits holding keys
@@ -209,12 +218,14 @@ __device__ __forceinline__ bool locate(Block& s, const int* lengths, T* out, int
 // split, else this split's partial result, count it, and if it is the
 // last to arrive merge all the splits in split order. `gb` heads per
 // chunk lay out the partials: (max, sum) [groups][nsplit][gb][2], then
-// the accumulators [groups][nsplit][gb][D].
+// the accumulators [groups][nsplit][gb][D]. The thread that writes a
+// head's element 0 of `out` writes its lse too, where `lse` is given.
 template <typename T, int D, int R>
 __device__ __forceinline__ void finish(const Block& s, unsigned char* smem, int gb, int nsplit,
-                                       int groups, T* __restrict__ out, int* __restrict__ cnt,
-                                       float* __restrict__ part) {
+                                       int groups, T* __restrict__ out, float* __restrict__ lse,
+                                       int* __restrict__ cnt, float* __restrict__ part) {
   __shared__ int is_last;
+  __shared__ float m_fin[ROWS];  // the max over the splits, per head
   const float* const red_m = reinterpret_cast<const float*>(smem);
   const float* const red_l = red_m + WARPS * R;
   const float* const red_o = red_l + WARPS * R;
@@ -237,6 +248,7 @@ __device__ __forceinline__ void finish(const Block& s, unsigned char* smem, int 
     }
     if (s.nact == 1) {
       ob[g * D + d] = from_f<T>(o / ls);
+      if (lse != nullptr && d == 0) lse[s.row0 / D + g] = mx * LN2 + logf(ls);
     } else {
       const long long p = (base + s.sp) * gb + g;
       part_o[p * D + d] = o;
@@ -277,6 +289,7 @@ __device__ __forceinline__ void finish(const Block& s, unsigned char* smem, int 
     for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
     __syncwarp();
     for (int j = lane; j < s.nact; j += 32) w_s[j * s.gn + g] = ex2(w_s[j * s.gn + g] - mx);
+    if (lane == 0) m_fin[g] = mx;
   }
   __syncthreads();
   for (int i = tid; i < s.gn * D; i += THREADS) {
@@ -290,6 +303,7 @@ __device__ __forceinline__ void finish(const Block& s, unsigned char* smem, int 
       o = fmaf(__ldcg(po + static_cast<long long>(j) * gb * D), w, o);
     }
     ob[g * D + d] = from_f<T>(o / ls);
+    if (lse != nullptr && d == 0) lse[s.row0 / D + g] = m_fin[g] * LN2 + logf(ls);
   }
 }
 
@@ -301,8 +315,9 @@ template <int D, int GB>
 __global__ void __launch_bounds__(THREADS)
 decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const int* __restrict__ lengths,
-              float* __restrict__ out, int* __restrict__ cnt, float* __restrict__ part, int HQ,
-              int HKV, int S, int split_keys, int nsplit, int ns, float qscale) {
+              float* __restrict__ out, float* __restrict__ lse, int* __restrict__ cnt,
+              float* __restrict__ part, int HQ, int HKV, int S, int split_keys, int nsplit,
+              int ns, float qscale) {
   constexpr int VEC = 4;                    // floats per 16-byte chunk
   constexpr int TPK = D / VEC;              // lanes per key
   constexpr int KPW = 32 / TPK;             // keys per warp step (key slots)
@@ -310,7 +325,7 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int SUB = GB * VEC > 32 ? CHUNKS / 2 : CHUNKS;  // steps per softmax update
   extern __shared__ __align__(16) unsigned char smem[];
   Block s;
-  if (!locate<float, D>(s, lengths, out, HQ, HKV, S, split_keys, GB)) return;
+  if (!locate<float, D>(s, lengths, out, lse, HQ, HKV, S, split_keys, GB)) return;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   // q of the block's heads, this lane's VEC columns, in registers.
@@ -460,7 +475,7 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
   __syncthreads();
-  finish<float, D, GB>(s, smem, GB, nsplit, gridDim.z * gridDim.y, out, cnt, part);
+  finish<float, D, GB>(s, smem, GB, nsplit, gridDim.z * gridDim.y, out, lse, cnt, part);
 }
 
 // ---------------------------------------------------------------------------
@@ -482,13 +497,14 @@ template <int D>
 __global__ void __launch_bounds__(THREADS)
 decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const int* __restrict__ lengths,
-                 bf16* __restrict__ out, int* __restrict__ cnt, float* __restrict__ part, int HQ,
-                 int HKV, int S, int split_keys, int nsplit, int ns, int gb, float qscale) {
+                 bf16* __restrict__ out, float* __restrict__ lse, int* __restrict__ cnt,
+                 float* __restrict__ part, int HQ, int HKV, int S, int split_keys, int nsplit,
+                 int ns, int gb, float qscale) {
   using L = TcTile<D>;
   constexpr int TK = L::TK, NT = TK / 8, DT = D / 8;
   extern __shared__ __align__(16) unsigned char smem[];
   Block s;
-  if (!locate<bf16, D>(s, lengths, out, HQ, HKV, S, split_keys, gb)) return;
+  if (!locate<bf16, D>(s, lengths, out, lse, HQ, HKV, S, split_keys, gb)) return;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int r0 = lane >> 2, c2 = 2 * (lane & 3);  // fragment row and column pair
 
@@ -639,7 +655,7 @@ decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
   __syncthreads();
-  finish<bf16, D, ROWS>(s, smem, gb, nsplit, gridDim.z * gridDim.y, out, cnt, part);
+  finish<bf16, D, ROWS>(s, smem, gb, nsplit, gridDim.z * gridDim.y, out, lse, cnt, part);
 }
 
 // ---------------------------------------------------------------------------
@@ -656,7 +672,7 @@ long long n_partials(int B, int HKV, int nhc, int nsplit, int gb, int D) {
 // Arguments of one call, as the wrapper passes them.
 struct Args {
   const void *q, *k, *v, *lengths;
-  void *out, *cnt, *part;
+  void *out, *lse, *cnt, *part;  // lse may be null
   int B, HQ, HKV, S, split_keys, nsplit, gb;
   float scale;
   cudaStream_t stream;
@@ -685,8 +701,9 @@ int launch_f32(const Args& a) {
   int ns;
   const int bytes = smem_bytes(a, CHUNKS * 32 * 4 / D, 2 * TILE_CHUNKS * 16, GB, D, &ns);
   return start(decode_kernel<D, GB>, a, bytes, (const float*)a.q, (const float*)a.k,
-               (const float*)a.v, (const int*)a.lengths, (float*)a.out, (int*)a.cnt,
-               (float*)a.part, a.HQ, a.HKV, a.S, a.split_keys, a.nsplit, ns, a.scale * LOG2E);
+               (const float*)a.v, (const int*)a.lengths, (float*)a.out, (float*)a.lse,
+               (int*)a.cnt, (float*)a.part, a.HQ, a.HKV, a.S, a.split_keys, a.nsplit, ns,
+               a.scale * LOG2E);
 }
 
 template <int D>
@@ -695,8 +712,8 @@ int launch_bf16(const Args& a) {
   int ns;
   const int bytes = smem_bytes(a, L::TK, L::STAGE * 16, ROWS, D, &ns);
   return start(decode_tc_kernel<D>, a, bytes, (const bf16*)a.q, (const bf16*)a.k,
-               (const bf16*)a.v, (const int*)a.lengths, (bf16*)a.out, (int*)a.cnt,
-               (float*)a.part, a.HQ, a.HKV, a.S, a.split_keys, a.nsplit, ns, a.gb,
+               (const bf16*)a.v, (const int*)a.lengths, (bf16*)a.out, (float*)a.lse,
+               (int*)a.cnt, (float*)a.part, a.HQ, a.HKV, a.S, a.split_keys, a.nsplit, ns, a.gb,
                a.scale * LOG2E);
 }
 
@@ -725,8 +742,9 @@ int checked(const Args& a, int D, long long cnt_len, long long part_len) {
 
 }  // namespace
 
-// q (B, HQ, D), k/v (B, HKV, S, D), lengths (B,) int32, out (B, HQ, D);
-// contiguous, 16-byte aligned; D in {32, 64, 128}; HQ a multiple of HKV.
+// q (B, HQ, D), k/v (B, HKV, S, D), lengths (B,) int32, out (B, HQ, D),
+// lse null or (B, HQ) float32 (each row's log-sum-exp); contiguous,
+// 16-byte aligned; D in {32, 64, 128}; HQ a multiple of HKV.
 // `heads` query heads per block (float32: 1, 2, 4 or 8; bfloat16: 1 to
 // 16), `nsplit` (<= 256) splits of `split_keys` keys covering S. `cnt`:
 // `cnt_len` int32 counters, all 0 (one per batch row, KV head and chunk
@@ -734,12 +752,12 @@ int checked(const Args& a, int D, long long cnt_len, long long part_len) {
 // floats ((2 + D) per split, counter and head). A launch given less is
 // refused. One launch; returns its CUDA error, or 0.
 extern "C" int decode_attention_f32(const void* q, const void* k, const void* v,
-                                    const void* lengths, void* out, void* cnt, long long cnt_len,
-                                    void* part, long long part_len, int B, int HQ, int HKV, int S,
-                                    int D, int heads, int split_keys, int nsplit, float scale,
-                                    void* stream) {
-  const Args a{q, k, v, lengths, out, cnt, part, B, HQ, HKV, S, split_keys, nsplit, heads, scale,
-               (cudaStream_t)stream};
+                                    const void* lengths, void* out, void* lse, void* cnt,
+                                    long long cnt_len, void* part, long long part_len, int B,
+                                    int HQ, int HKV, int S, int D, int heads, int split_keys,
+                                    int nsplit, float scale, void* stream) {
+  const Args a{q, k, v, lengths, out, lse, cnt, part, B, HQ, HKV, S, split_keys, nsplit, heads,
+               scale, (cudaStream_t)stream};
   if (int err = checked(a, D, cnt_len, part_len)) return err;
   switch (D) {
     case 32: return f32_heads<32>(a);
@@ -750,12 +768,12 @@ extern "C" int decode_attention_f32(const void* q, const void* k, const void* v,
 }
 
 extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v,
-                                     const void* lengths, void* out, void* cnt, long long cnt_len,
-                                     void* part, long long part_len, int B, int HQ, int HKV,
-                                     int S, int D, int heads, int split_keys, int nsplit,
-                                     float scale, void* stream) {
-  const Args a{q, k, v, lengths, out, cnt, part, B, HQ, HKV, S, split_keys, nsplit, heads, scale,
-               (cudaStream_t)stream};
+                                     const void* lengths, void* out, void* lse, void* cnt,
+                                     long long cnt_len, void* part, long long part_len, int B,
+                                     int HQ, int HKV, int S, int D, int heads, int split_keys,
+                                     int nsplit, float scale, void* stream) {
+  const Args a{q, k, v, lengths, out, lse, cnt, part, B, HQ, HKV, S, split_keys, nsplit, heads,
+               scale, (cudaStream_t)stream};
   if (int err = checked(a, D, cnt_len, part_len)) return err;
   if (heads > ROWS) return (int)cudaErrorInvalidValue;
   switch (D) {

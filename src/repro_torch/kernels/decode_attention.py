@@ -7,7 +7,11 @@ header says what bounds the kernel on the card. One launch per call:
 the splits of the cache length are combined inside it, through
 workspaces (int32 counters, float32 partial results) that the wrapper
 keeps per device and stream and grows when a larger shape needs them.
-:func:`plan` is the host's choice of splits.
+:func:`plan` is the host's choice of splits. With ``return_lse`` the
+same launch also writes each row's log-sum-exp (natural log, float32,
+-inf for a length of 0), by which the partial results of ranks that
+each hold one chunk of a cache's sequence merge
+(``launch/spmd.merge_partials``).
 """
 
 from __future__ import annotations
@@ -58,7 +62,7 @@ MAX_SPLITS = 256
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _L = ctypes.c_longlong
-_ARGTYPES = [_P] * 6 + [_L, _P, _L] + [_I] * 8 + [ctypes.c_float, _P]
+_ARGTYPES = [_P] * 7 + [_L, _P, _L] + [_I] * 8 + [ctypes.c_float, _P]
 _FNS = {torch.float32: "decode_attention_f32", torch.bfloat16: "decode_attention_bf16"}
 _lib = None
 _workspaces: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
@@ -148,12 +152,14 @@ def _workspace(p: Plan, device: torch.device, stream: int):
 
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          lengths: torch.Tensor) -> torch.Tensor:
+                          lengths: torch.Tensor, return_lse: bool = False):
     """q (B, Hq, D), k/v (B, Hkv, S, D), lengths (B,) int32, all on the
     card and contiguous; q, k, v float32 or bfloat16 (one type), Hq a
     multiple of Hkv, D in :data:`HEAD_DIMS`, any S. Positions
     ``< lengths[b]`` attend (clamped to [0, S]; a length of 0 gives
-    zeros) -> (B, Hq, D) in q's type. One launch; no host sync."""
+    zeros) -> (B, Hq, D) in q's type; with ``return_lse`` also the
+    (B, Hq) float32 log-sum-exp of each row's scaled scores (-inf for a
+    length of 0). One launch; no host sync."""
     global launches, last_plan
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"expected q (B,Hq,D) and k, v (B,Hkv,S,D); got "
@@ -175,8 +181,10 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     out = torch.empty_like(q)
+    lse = torch.empty((b, hq), dtype=torch.float32, device=q.device) if return_lse else None
     if q.numel() == 0 or s == 0:
-        return out.zero_()
+        out.zero_()
+        return (out, lse.fill_(float("-inf"))) if return_lse else out
     dev = q.device
     sms = _sm_counts.get(dev.index)
     if sms is None:
@@ -187,10 +195,11 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         cnt, part = _workspace(p, dev, stream)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                 cnt.data_ptr(), cnt.numel(), part.data_ptr(), part.numel(), b, hq, hkv, s, d,
-                 p.heads, p.split_keys, p.splits, 1.0 / math.sqrt(d), stream)
+                 None if lse is None else lse.data_ptr(), cnt.data_ptr(), cnt.numel(),
+                 part.data_ptr(), part.numel(), b, hq, hkv, s, d, p.heads, p.split_keys,
+                 p.splits, 1.0 / math.sqrt(d), stream)
     if err:
         raise RuntimeError(f"decode_attention launch failed: cudaError {err}")
     launches += 1
     last_plan = p
-    return out
+    return (out, lse) if return_lse else out

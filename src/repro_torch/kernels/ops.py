@@ -2,7 +2,12 @@
 
 * a CUDA tensor goes to the hand-written kernel (which launches or
   raises; nothing falls back),
-* a CPU tensor goes to the plain PyTorch version in :mod:`.ref`.
+* a CPU tensor goes to the plain PyTorch version in :mod:`.ref`,
+* a tensor on the ``meta`` device (the dry run, ``launch/dryrun.py``)
+  gets empty outputs of the kernel's shapes and types: the language
+  models' three kernels hold no storage on the card beyond their
+  outputs (and the flash forward's lse), which the plain versions'
+  score matrices would overstate.
 
 The WSI pipeline's ``gpu`` function variants
 (:mod:`repro_torch.app.pipeline`) call the image kernels, and the
@@ -61,6 +66,22 @@ _COUNTERS = {
 }
 
 
+class _Shapes:
+    """The outputs the LM kernels give, empty (``meta`` tensors)."""
+
+    @staticmethod
+    def flash(q):
+        return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+    @staticmethod
+    def decode(q):
+        return torch.empty_like(q), q.new_empty(q.shape[:2], dtype=torch.float32)
+
+    @staticmethod
+    def scan(inc):
+        return torch.empty_like(inc), inc.new_empty(inc.shape[1:])
+
+
 def _on_card(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
         return True
@@ -107,7 +128,9 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool):
-        if _on_card(q):
+        if q.is_meta:
+            out, lse = _Shapes.flash(q)
+        elif _on_card(q):
             out, lse = _fa.flash_attention_cuda(q, k, v, causal, return_lse=True)
         else:
             out, lse = ref.flash_attention_fwd_ref(q, k, v, causal)
@@ -118,7 +141,9 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        if _on_card(q):
+        if q.is_meta:
+            dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        elif _on_card(q):
             dq, dk, dv = _fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, ctx.causal)
         else:
             dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, ctx.causal)
@@ -129,17 +154,23 @@ def flash_attention(q, k, v, causal: bool = True):
     """(B, H, S, D) attention over k/v (B, Hkv, S, D), GQA by ``h // group``."""
     if _records(q, k, v):
         return FlashAttention.apply(q, k, v, causal)
+    if q.is_meta:
+        return _Shapes.flash(q)[0]
     if _on_card(q):
         return _fa.flash_attention_cuda(q, k, v, causal)
     return ref.flash_attention_ref(q, k, v, causal)
 
 
-def decode_attention(q, k, v, lengths):
+def decode_attention(q, k, v, lengths, return_lse: bool = False):
     """One query (B, Hq, D) over a (B, Hkv, S, D) cache; positions
-    ``< lengths`` attend."""
+    ``< lengths`` attend. With ``return_lse`` -> (out, lse): lse (B, Hq)
+    float32, the natural-log log-sum-exp of each row's scaled scores,
+    -inf (and out 0) where the length is 0."""
+    if q.is_meta:
+        return _Shapes.decode(q) if return_lse else _Shapes.decode(q)[0]
     if _on_card(q):
-        return _da.decode_attention_cuda(q, k, v, lengths)
-    return ref.decode_attention_ref(q, k, v, lengths)
+        return _da.decode_attention_cuda(q, k, v, lengths, return_lse)
+    return ref.decode_attention_ref(q, k, v, lengths, return_lse)
 
 
 class Mamba2ChunkScan(torch.autograd.Function):
@@ -148,7 +179,9 @@ class Mamba2ChunkScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, decay, inc):
-        if _on_card(inc):
+        if inc.is_meta:
+            states, final = _Shapes.scan(inc)
+        elif _on_card(inc):
             states, final = _ms.mamba2_chunk_scan_cuda(decay, inc)
         else:
             states, final = ref.mamba2_chunk_scan_ref(decay, inc)
@@ -158,6 +191,8 @@ class Mamba2ChunkScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_states, g_final):
         decay, states = ctx.saved_tensors
+        if states.is_meta:
+            return torch.empty_like(decay, dtype=torch.float32), torch.empty_like(states)
         if _on_card(states):
             return _ms.mamba2_chunk_scan_bwd_cuda(decay, states, g_states, g_final)
         return ref.mamba2_chunk_scan_bwd_ref(decay, states, g_states, g_final)
@@ -167,6 +202,8 @@ def mamba2_chunk_scan(decay, inc):
     """States entering each chunk (C, H, F) and the final state (H, F)."""
     if _records(decay, inc):
         return Mamba2ChunkScan.apply(decay, inc)
+    if inc.is_meta:
+        return _Shapes.scan(inc)
     if _on_card(inc):
         return _ms.mamba2_chunk_scan_cuda(decay, inc)
     return ref.mamba2_chunk_scan_ref(decay, inc)

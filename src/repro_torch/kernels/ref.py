@@ -181,12 +181,15 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         lengths: torch.Tensor) -> torch.Tensor:
+                         lengths: torch.Tensor, return_lse: bool = False):
     """Single-token attention against a KV cache.
 
     q: (B, Hq, D); k/v: (B, Hkv, S, D); lengths: (B,) valid cache length
     (positions ``< lengths`` attend). GQA: query head i reads kv head
-    ``i // (Hq // Hkv)``. Output in q's dtype.
+    ``i // (Hq // Hkv)``. Output in q's dtype. With ``return_lse`` ->
+    (out, lse), lse (B, Hq) float32 the natural-log log-sum-exp of each
+    row's scaled scores, and where a row has no key (a length of 0) out
+    0 and lse -inf, as the kernel gives them.
     """
     group = q.shape[1] // k.shape[1]
     s, d = k.shape[2], q.shape[2]
@@ -197,7 +200,11 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     valid = pos[None, None, :] < lengths.to(q.device)[:, None, None]
     logits = logits.masked_fill(~valid, float("-inf"))
     p = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhs,bhsd->bhd", p, vf).to(q.dtype)
+    out = torch.einsum("bhs,bhsd->bhd", p, vf).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(logits, dim=-1)
+    return torch.where(torch.isneginf(lse)[..., None], torch.zeros_like(out), out), lse
 
 
 def mamba2_chunk_scan_ref(decay: torch.Tensor, inc: torch.Tensor):

@@ -18,7 +18,9 @@ read, so a duck-typed mesh serves them too.
 run on the card. ``gloo`` runs them in host memory: a CUDA tensor is
 copied to the host, reduced there and copied back (ranks that share one
 card cannot use ``nccl``), and the bytes so staged are counted beside
-the bytes of each kind of collective.
+the bytes of each kind of collective. On ``meta`` tensors (the dry run
+over a ``fake`` process group, ``launch/dryrun.py``) a collective only
+counts its bytes.
 """
 
 from __future__ import annotations
@@ -86,6 +88,8 @@ class Comm:
         a copy of ``t``); through pinned host buffers for a CUDA tensor on
         ``gloo``."""
         self.bytes[kind] += t.numel() * t.element_size()
+        if t.is_meta:  # the dry run (``launch/dryrun.py``): counted, nothing moves
+            return t.new_empty(t.shape if out_shape is None else out_shape)
         staged = t.is_cuda and self.backend == "gloo"
         if staged:
             src = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)

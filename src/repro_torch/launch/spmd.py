@@ -31,16 +31,33 @@ GSPMD does, on a :class:`~.mesh.Mesh`:
 * **MoE routing over the data axes.** Capacity, ranks within each
   expert and the balance loss are those of the whole batch: each rank
   offsets its ranks by the counts of the ranks before it.
+* **Serving layouts** (:meth:`Spmd.serve_layout`, :meth:`Spmd.init_caches`,
+  :meth:`Spmd.shard_caches`, by :func:`.sharding.cache_specs`), derived
+  from the global batch and the caches' length at each prefill and
+  decode step, and in force only for that call. A batch the data axes divide is
+  split over them (each rank serves its rows). A batch they do not
+  divide (batch 1, long context) is served whole by every rank, and the
+  KV caches' *sequence* is split over the data axes instead: each rank
+  holds ``Smax / dp`` positions, writes the new K/V row only where its
+  chunk holds it, attends over its chunk with the decode kernel's
+  log-sum-exp, and the ranks' partial results merge
+  (:func:`merge_partials`: one all-reduce of the max of the
+  log-sum-exps, one of the weighted outputs and weights). The Mamba2 and
+  xLSTM states are replicated over the data axes there, as the
+  reference's rule has them. The cache is never gathered to one rank.
 
 The train step takes the global batch and uses its rank's rows (the
 data axes split the batch; the loss and metrics are averaged over
-them); serving takes and returns the rank's rows. Weights: every rank
+them); so does the prefill, which returns the rank's rows of the logits
+and its chunk of the caches; a decode step takes and returns the rank's
+rows, under the layout its caches were made in. Weights: every rank
 builds the whole model from the same seed (or state dict) and keeps its
 chunk, so the sharded model computes what one rank computes.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import torch
@@ -52,8 +69,8 @@ from ..models.layers import BF16_WEIGHTS
 from .mesh import Comm, Mesh, axes_for
 from .sharding import cache_specs, param_specs, reference_path, tp_split_dim
 
-__all__ = ["distribute", "Spmd", "ShardView", "TensorParallel", "shard_of",
-           "gather_whole", "split_counts"]
+__all__ = ["distribute", "Spmd", "ShardView", "TensorParallel", "SequenceSplit", "ServeLayout",
+           "shard_of", "gather_whole", "split_counts", "merge_partials"]
 
 
 # --------------------------------------------------------------------------
@@ -179,6 +196,55 @@ class BatchAxes:
         return self.comm.all_gather(x.detach(), dim)
 
 
+def merge_partials(out: torch.Tensor, lse: torch.Tensor, all_reduce) -> torch.Tensor:
+    """The attention over a whole sequence from the ranks' attention over
+    their chunks of it. ``out`` (..., D) is this rank's result over its
+    chunk, ``lse`` (...) float32 the log-sum-exp of its scores (-inf
+    where the chunk holds no valid key, and then ``out`` is 0);
+    ``all_reduce(t, op)`` reduces over the ranks (``Comm.all_reduce``).
+    Two reductions: the max of ``lse``, then the sum of
+    ``out * exp(lse - max)`` and ``exp(lse - max)`` in one tensor.
+    Returns float32 (0 where no rank holds a key)."""
+    peak = all_reduce(lse, "max")
+    w = torch.where(torch.isneginf(lse), torch.zeros_like(lse), torch.exp(lse - peak))
+    both = all_reduce(torch.cat([out.float() * w[..., None], w[..., None]], dim=-1), "sum")
+    den = both[..., -1:]
+    return torch.where(den > 0, both[..., :-1] / den.clamp_min(torch.finfo(den.dtype).tiny),
+                       torch.zeros_like(both[..., :-1]))
+
+
+@dataclass(frozen=True)
+class SequenceSplit:
+    """The data axes that split the decode caches' sequence (the
+    long-context layout), as ``attention_decode`` sees them (``p.seq``):
+    this rank holds positions ``[rank * chunk, (rank + 1) * chunk)``."""
+
+    comm: Comm
+
+    @property
+    def rank(self) -> int:
+        return self.comm.rank
+
+    def merge(self, out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+        return merge_partials(out, lse, self.comm.all_reduce)
+
+
+@dataclass(frozen=True)
+class ServeLayout:
+    """How a forward pass lays out its batch over the data axes:
+    ``rows_split`` (each rank computes its rows; MoE routing sums over
+    the ranks) or every rank the whole batch; ``seq`` the split of the
+    decode caches' sequence (the long-context layout) or None. Training
+    runs in :data:`ROWS_SPLIT`; :meth:`Spmd.serve_layout` gives a
+    serving call's."""
+
+    rows_split: bool
+    seq: SequenceSplit | None = None
+
+
+ROWS_SPLIT = ServeLayout(rows_split=True)
+
+
 # --------------------------------------------------------------------------
 # Layouts
 # --------------------------------------------------------------------------
@@ -241,13 +307,16 @@ class ShardView:
     and kept for the life of the view. ``tp`` is the layer's
     :class:`TensorParallel` group where it is split over ``model``, else
     None; ``dp`` the :class:`BatchAxes` that split the batch (None on
-    one data rank)."""
+    one data rank, and where the serving layout keeps the batch whole);
+    ``seq`` the :class:`SequenceSplit` of the decode caches' sequence
+    (None unless the serving layout is the long-context one)."""
 
     def __init__(self, spmd: "Spmd", module: nn.Module, prefix: str):
         self._spmd, self._module, self._prefix = spmd, module, prefix
         self._cache: dict[str, torch.Tensor] = {}
         self.tp = spmd.module_tp.get(prefix)
-        self.dp = spmd.batch_axes
+        self.dp = spmd.batch_axes if spmd.layout.rows_split else None
+        self.seq = spmd.layout.seq
 
     def __getitem__(self, key: str):
         item = self._module[key]
@@ -304,6 +373,8 @@ class Spmd:
         self.vocab = tpg if tpg is not None and self.layouts["embed"].compute_dim is not None \
             else None
         self.batch_axes = BatchAxes(self.data) if self.dp > 1 else None
+        # The layout of the call in progress (:meth:`serving`), else training's.
+        self.layout = ROWS_SPLIT
         self.prefixes = {id(m): (f"{n}." if n else "") for n, m in model.named_modules()}
         self.root = model
 
@@ -313,14 +384,17 @@ class Spmd:
         """The leaf ``name`` (this rank's chunk ``t``) as its layer reads it."""
         lay = self.layouts[name]
         x = t if lay.cast is None or t.dtype == lay.cast else t.to(lay.cast)
+        # A gathered leaf is made contiguous: a product of one gathered on
+        # another dim than 0 rounds otherwise, unlike one rank's (xLSTM's
+        # decode, the int8 KV cache's codes).
         if self.data.size > 1:
             if lay.data_dim is not None:
-                x = _Gather.apply(x, self.data, lay.data_dim, True)
+                x = _Gather.apply(x, self.data, lay.data_dim, True).contiguous()
             elif x.requires_grad:
                 x = _CopyIn.apply(x, self.data)
         if self.model.size > 1 and lay.model_dim != lay.compute_dim:
             if lay.model_dim is not None:
-                x = _Gather.apply(x, self.model, lay.model_dim, False)
+                x = _Gather.apply(x, self.model, lay.model_dim, False).contiguous()
             if lay.compute_dim is not None:
                 x = _Split.apply(x, self.model, lay.compute_dim)
         return x
@@ -381,33 +455,79 @@ class Spmd:
 
     # ---- caches ----------------------------------------------------------
 
-    def init_caches(self, batch: int, max_len: int, device, dtype: torch.dtype) -> dict:
-        """This rank's chunk of empty decode caches for a global ``batch``,
-        laid out by :func:`.sharding.cache_specs`: batch over the data
-        axes, slots over ``model``."""
+    def serve_layout(self, batch: int, max_len: int) -> ServeLayout:
+        """The layout of prefill and decode for a global ``batch`` and
+        caches of ``max_len`` positions (the reference's ``cache_specs``):
+        rows split over the data axes where they divide ``batch``;
+        otherwise every rank serves the whole batch, and the KV caches'
+        sequence is split over the data axes where they divide
+        ``max_len``."""
+        if batch % self.dp == 0:
+            return ROWS_SPLIT
+        long_seq = self.dp > 1 and max_len % self.dp == 0
+        return ServeLayout(rows_split=False, seq=SequenceSplit(self.data) if long_seq else None)
+
+    @contextlib.contextmanager
+    def serving(self, layout: ServeLayout):
+        """``layout`` for the views made inside the block (one prefill or
+        decode step), training's after it, whatever the block raised."""
+        prev, self.layout = self.layout, layout
+        try:
+            yield
+        finally:
+            self.layout = prev
+
+    def cache_layout(self, batch: int, max_len: int, dtype: torch.dtype = torch.float32):
+        """-> (the whole caches of a global ``batch`` as ``meta``
+        tensors, the spec of each leaf as this rank holds it). The specs
+        are :func:`.sharding.cache_specs`', except that a Mamba2 state
+        split over ``model`` there (``ssm``'s heads) is held whole: the
+        Mamba2 layers run whole on every model rank (ROADMAP.md,
+        intended differences)."""
+        from torch.utils._python_dispatch import _disable_current_modes
+
         from ..models import transformer as T
 
-        cfg = self.cfg
-        if cfg.family not in ("dense", "moe", "vlm"):
-            raise NotImplementedError(
-                f"serving {cfg.family} on a mesh is not ported (ROADMAP.md, open items: "
-                "the other families' serving on a mesh)")
-        if batch % self.dp:
-            raise NotImplementedError(
-                f"batch {batch} on {self.dp} data ranks: the long-context layout (the "
-                "cache's sequence over the data axes) is not ported (ROADMAP.md, open items)")
-        whole = T.init_caches(cfg, batch, max_len, self.root.plan, "meta", dtype)
-        specs = cache_specs(whole, cfg, axes_for(self.mesh), self.mesh, batch=batch)
+        # The template holds shapes only: a dispatch mode over the caller
+        # (the dry run's count of live storage) must not see it made.
+        with _disable_current_modes():
+            whole = T.init_caches(self.cfg, batch, max_len, self.root.plan, "meta", dtype)
+        specs = cache_specs(whole, self.cfg, axes_for(self.mesh), self.mesh, batch=batch)
+        model = axes_for(self.mesh).model
+        if "mamba" in specs:
+            specs["mamba"] = [{k: tuple(None if a == model else a for a in spec)
+                               for k, spec in leaf.items()} for leaf in specs["mamba"]]
+        return whole, specs
 
-        def local(node, spec):
-            if isinstance(node, dict):
-                return {k: local(v, spec[k]) for k, v in node.items()}
-            if isinstance(node, list):
-                return [local(v, s) for v, s in zip(node, spec)]
-            shape = [n // c for n, c in zip(node.shape, split_counts(spec, self.mesh))]
-            return torch.zeros(shape, dtype=node.dtype, device=device)
+    def init_caches(self, batch: int, max_len: int, device, dtype: torch.dtype) -> dict:
+        """This rank's chunk of empty decode caches for a global ``batch``,
+        laid out by :meth:`cache_layout` (batch or, for a batch the data
+        axes do not divide, the KV sequence over the data axes; slots
+        over ``model``)."""
+        whole, specs = self.cache_layout(batch, max_len, dtype)
+        return _map_leaves(whole, specs, lambda leaf, spec: torch.zeros(
+            [n // c for n, c in zip(leaf.shape, split_counts(spec, self.mesh))],
+            dtype=leaf.dtype, device=device))
 
-        return local(whole, specs)
+    def shard_caches(self, caches: dict, batch: int) -> dict:
+        """This rank's chunk, as :meth:`init_caches` lays it out, of the
+        caches of a global ``batch`` that a prefill made: whole caches
+        (one rank's model) are cut; a dim the prefill already split (a
+        mesh's prefill gives its slots of ``model``, or its rows of a
+        batch the data axes divide) is kept."""
+        kv = caches.get("kv") or caches.get("shared_kv")
+        max_len = next(iter(kv[0].values())).shape[2] if kv else 1
+        whole, specs = self.cache_layout(batch, max_len)
+
+        def cut(whole_leaf, spec, leaf):
+            for dim, part in enumerate(spec):
+                axes = _axes_of(part)
+                if axes and leaf.shape[dim] == whole_leaf.shape[dim]:
+                    comm = self.mesh.comm(axes)
+                    leaf = leaf.chunk(comm.size, dim)[comm.rank]
+            return leaf.contiguous()
+
+        return _map_leaves(whole, specs, cut, caches)
 
     # ---- optimizer -------------------------------------------------------
 
@@ -433,6 +553,18 @@ class Spmd:
         spec = self.specs[name] if stacked_in_reference(name) else self.specs[name][1:]
         axes = tuple(a for part in spec for a in _axes_of(part))
         return amax if not axes else self.mesh.comm(axes).all_reduce(amax, "max")
+
+
+def _map_leaves(whole, specs, fn, *others):
+    """``fn(leaf, spec, *other leaves)`` over the leaves of ``whole`` (dicts
+    and lists of tensors), with ``specs`` and ``others`` of its structure."""
+    if isinstance(whole, dict):
+        return {k: _map_leaves(v, specs[k], fn, *(o[k] for o in others))
+                for k, v in whole.items()}
+    if isinstance(whole, list):
+        return [_map_leaves(v, specs[i], fn, *(o[i] for o in others))
+                for i, v in enumerate(whole)]
+    return fn(whole, specs, *others)
 
 
 def distribute(model: nn.Module, mesh: Mesh) -> nn.Module:

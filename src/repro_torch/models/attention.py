@@ -13,6 +13,11 @@ Prefill and training go through :func:`repro_torch.kernels.ops.flash_attention`
 writes the new K/V row in place at ``lengths`` and calls
 :func:`repro_torch.kernels.ops.decode_attention` over the ``lengths + 1``
 valid positions (the reference attends to positions ``<= lengths``).
+On a mesh whose serving layout splits the cache's sequence over the data
+axes (``p.seq``, the long-context layout of ``launch/spmd.py``), a rank
+holds positions ``[r * chunk, (r + 1) * chunk)``: it writes the new row
+only where its chunk holds it, attends over its chunk's valid prefix
+with the kernel's log-sum-exp, and the ranks' partial results merge.
 
 Cross-attention (the encoder-decoder's ``kv_override``) has a query
 length other than the encoder's, which neither the TPU kernel nor the
@@ -229,9 +234,18 @@ def attention_decode(p, x: torch.Tensor, cache: dict[str, torch.Tensor],
     length (in place), attend to the valid prefix.
 
     x: (B, 1, D); cache {"k","v"}: (B, slots, Smax, hd) (or the int8
-    ``k_q``/``k_s``/``v_q``/``v_s``); lengths: (B,) int32 tokens already
-    in the cache. Returns (y (B, 1, D), cache)."""
+    ``k_q``/``k_s``/``v_q``/``v_s``; on a rank of the long-context layout
+    its chunk of Smax); lengths: (B,) int32 tokens already in the cache.
+    Returns (y (B, 1, D), cache)."""
     b = x.shape[0]
+    seq = getattr(p, "seq", None)  # the ranks that split the cache's sequence
+    pos, valid, mine = lengths.long(), attended_length(lengths), None
+    if seq is not None:  # no host read: the row's rank and each rank's length on the device
+        chunk = next(iter(cache.values())).shape[2]
+        pos = pos - seq.rank * chunk
+        mine = (pos >= 0) & (pos < chunk)
+        pos = pos.clamp(0, chunk - 1)
+        valid = (valid - seq.rank * chunk).clamp(0, chunk)
     x = tp_enter(p, x)
     # RoPE at each sequence's own position, which broadcasts differently
     # against q (B,slots,g,1,hd) and k (B,slots,1,hd): applied here.
@@ -240,21 +254,31 @@ def attention_decode(p, x: torch.Tensor, cache: dict[str, torch.Tensor],
         q = apply_rope(q, lengths[:, None, None, None], cfg.rope_theta)
         k = apply_rope(k, lengths[:, None, None], cfg.rope_theta)
     bidx = torch.arange(b, device=x.device)
-    lidx = lengths.long()
+
+    def put(name: str, row: torch.Tensor) -> None:
+        buf = cache[name]
+        row = row.to(buf.dtype)
+        if mine is not None:  # other ranks write back what they hold
+            row = torch.where(mine[:, None, None], row, buf[bidx, :, pos, :])
+        buf[bidx, :, pos, :] = row
+
     _, slots, g, _, hd = q.shape
     q = q.reshape(b, slots * g, hd)
     if "k_q" in cache:  # int8 cache (attention_options): attend in float32
         for name, row in (("k", k[:, :, 0, :]), ("v", v[:, :, 0, :])):
             rows, scales = _quant_rows(row)
-            cache[f"{name}_q"][bidx, :, lidx, :] = rows
-            cache[f"{name}_s"][bidx, :, lidx, :] = scales
+            put(f"{name}_q", rows)
+            put(f"{name}_s", scales)
         kc = cache["k_q"].float() * cache["k_s"]
         vc = cache["v_q"].float() * cache["v_s"]
         q = q.float()
     else:
-        cache["k"][bidx, :, lidx, :] = k[:, :, 0, :].to(cache["k"].dtype)
-        cache["v"][bidx, :, lidx, :] = v[:, :, 0, :].to(cache["v"].dtype)
+        put("k", k[:, :, 0, :])
+        put("v", v[:, :, 0, :])
         kc, vc = cache["k"], cache["v"]
-    out = ops.decode_attention(q.contiguous(), kc, vc,
-                               attended_length(lengths).to(torch.int32)).to(x.dtype)
-    return _out_proj(p, out.view(b, slots, g, 1, hd)), cache
+    valid = valid.to(torch.int32)
+    if seq is None:
+        out = ops.decode_attention(q.contiguous(), kc, vc, valid)
+    else:
+        out = seq.merge(*ops.decode_attention(q.contiguous(), kc, vc, valid, return_lse=True))
+    return _out_proj(p, out.to(x.dtype).view(b, slots, g, 1, hd)), cache

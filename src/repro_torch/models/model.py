@@ -38,8 +38,12 @@ class Model(Params):
 
     On a mesh (``spmd`` set, see ``launch/spmd.py``) the parameters are
     this rank's chunks; ``train_forward`` returns this rank's block of
-    the vocabulary, and ``prefill``, ``decode_step`` and
-    ``init_caches`` take and return this rank's rows of the batch."""
+    the vocabulary. ``prefill`` takes the global batch and returns this
+    rank's rows of the logits and its chunk of the caches, in the layout
+    ``init_caches`` gives for that batch (``launch/spmd.py``, serving
+    layouts); ``decode_step`` takes and returns this rank's rows, and
+    where the data axes have more than one rank, the ``layout`` its
+    caches were made in (``model.spmd.serve_layout(batch, max_len)``)."""
 
     def __init__(self, cfg: ArchConfig, plan: ShardingPlan, params: dict,
                  trainable: bool = False, act_dtype: torch.dtype | None = None):
@@ -65,8 +69,15 @@ class Model(Params):
         loss = (nll * mask).sum() / mask.sum().clamp_min(1.0)
         return loss + aux_weight * aux, {"nll": loss, "aux": aux}
 
-    def decode_step(self, caches, tokens, lengths):
-        return T.decode_step(self, caches, tokens, lengths, self.cfg)
+    def decode_step(self, caches, tokens, lengths, layout=None):
+        sp = getattr(self, "spmd", None)
+        if sp is None or sp.dp == 1:
+            return T.decode_step(self, caches, tokens, lengths, self.cfg)
+        if layout is None:
+            raise ValueError(f"decode on {sp.dp} data ranks needs the caches' layout: "
+                             "model.spmd.serve_layout(batch, max_len)")
+        with sp.serving(layout):
+            return T.decode_step(self, caches, tokens, lengths, self.cfg)
 
     def init_caches(self, batch: int, max_len: int):
         """Empty caches for ``batch`` rows; on a mesh, this rank's chunk
@@ -78,7 +89,15 @@ class Model(Params):
                              T.compute_dtype(self))
 
     def prefill(self, inputs: dict, max_len: int):
-        return T.prefill(self, inputs, self.cfg, max_len)
+        sp = getattr(self, "spmd", None)
+        if sp is None:
+            return T.prefill(self, inputs, self.cfg, max_len)
+        batch = next(iter(inputs.values())).shape[0]
+        layout = sp.serve_layout(batch, max_len)
+        with sp.serving(layout):
+            logits, caches = T.prefill(self, sp.local_batch(inputs) if layout.rows_split
+                                       else inputs, self.cfg, max_len)
+        return logits, sp.shard_caches(caches, batch)
 
 
 def build_model(cfg: ArchConfig, plan: ShardingPlan | None = None, *,

@@ -160,12 +160,13 @@ def make_compressed_dp_grads(model: Model, mesh, dp_axes: tuple[str, ...]):
     return grads_fn
 
 
-def make_serve_step(model: Model):
+def make_serve_step(model: Model, layout=None):
     """-> serve_step(caches, tokens, lengths) ->
-    (next_tokens, logits, caches, lengths)."""
+    (next_tokens, logits, caches, lengths). On a mesh with more than one
+    data rank, ``layout`` is the caches' (``Model.decode_step``)."""
 
     def serve_step(caches, tokens, lengths):
-        logits, caches = model.decode_step(caches, tokens, lengths)
+        logits, caches = model.decode_step(caches, tokens, lengths, layout)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         return nxt, logits, caches, lengths + 1
 

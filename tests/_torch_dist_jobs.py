@@ -188,15 +188,6 @@ def train_job(rank, world, args):
     return out
 
 
-def _refusal(fn):
-    """The message of the ``NotImplementedError`` ``fn`` raises, or None."""
-    try:
-        fn()
-    except NotImplementedError as exc:
-        return str(exc)
-    return None
-
-
 def serve_elastic_job(rank, world, args):
     """Prefill and greedy decode on (1, 2); then elastic (2, 2) -> (1, 2)."""
     from repro_torch.configs import get_smoke_config
@@ -223,15 +214,6 @@ def serve_elastic_job(rank, world, args):
             seq.append(logits)
         out["serve"][arch] = dict(logits=torch.stack(seq), tokens=torch.stack(toks_out),
                                   slots=caches["kv"][0]["k"].shape[1])
-    mesh_2x1 = _mesh((2, 1), world)  # every rank calls it
-    if mesh.member:  # hybrid serving on a mesh is not ported
-        model = _sharded(get_smoke_config("zamba2-1.2b"), args["hybrid"], mesh, trainable=False)
-        out["refused_family"] = _refusal(lambda: model.init_caches(2, 8))
-    if mesh_2x1.member:  # nor the long-context layout (batch 1 on 2 data ranks)
-        state = args["serve"]["qwen1.5-4b"][0]
-        model = _sharded(get_smoke_config("qwen1.5-4b"), state, mesh_2x1, trainable=False)
-        out["refused_long"] = _refusal(lambda: model.init_caches(1, 8))
-
     e = args["elastic"]
     cfg = get_smoke_config(e["arch"])
     mesh_a, mesh_b = _mesh((2, 2), world), _mesh((1, 2), world)
@@ -252,6 +234,74 @@ def serve_elastic_job(rank, world, args):
         out["elastic"] = dict(losses=losses, params={
             k: gather_whole(p.detach(), model.spmd.specs[k], mesh_b)
             for k, p in tstate.params.items()}, ranks=mesh_b.size)
+    return out
+
+
+def _leaf_shapes(tree):
+    if isinstance(tree, dict):
+        return {k: _leaf_shapes(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_leaf_shapes(v) for v in tree]
+    return tuple(tree.shape)
+
+
+def serve_mesh_job(rank, world, args):
+    """Each case: the global batch prefilled on every rank of its mesh
+    (which keeps the rank's rows and its chunk of the caches, checked
+    against the layout of ``init_caches``), then greedy decode steps on
+    the rank's rows (all of them where the data axes do not divide the
+    batch: the long-context layout). -> the whole logits and tokens per
+    case, and whether the model was back in the training layout after
+    it; then ``args["int8"]``'s chain of the int8 KV cache from empty
+    caches."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.spmd import ROWS_SPLIT
+    from repro_torch.train import make_serve_step
+
+    out = {}
+    for c in args["cases"]:
+        mesh = _mesh(c["mesh"], world)  # every rank calls it
+        if not mesh.member:
+            continue
+        arch, batch, p = c["arch"], c["batch"], c["prompt"]
+        model = _sharded(get_smoke_config(arch), args["states"][arch], mesh, trainable=False)
+        sp = model.spmd
+        inputs = dict(args["inputs"][arch, batch])
+        inputs["tokens"] = inputs["tokens"][:, :p]
+        mine, caches = model.prefill(inputs, c["max_len"])
+        same = _leaf_shapes(caches) == _leaf_shapes(model.init_caches(batch, c["max_len"]))
+        layout = sp.serve_layout(batch, c["max_len"])
+        split = layout.rows_split
+        rows = (lambda t: sp.data.chunk(t, 0)) if split else (lambda t: t)  # noqa: E731
+        join = (lambda t: sp.data.all_gather(t, 0)) if split else (lambda t: t)  # noqa: E731
+        step = make_serve_step(model, layout)
+        lengths = rows(torch.full((batch,), p, dtype=torch.int32))
+        seq, toks = [join(mine)], []
+        for _ in range(c["steps"]):
+            nxt = mine.argmax(-1).to(torch.int32)
+            toks.append(join(nxt))
+            _, mine, caches, lengths = step(caches, nxt, lengths)
+            seq.append(join(mine))
+        out[c["key"]] = dict(logits=torch.stack(seq), tokens=torch.stack(toks), layout=same,
+                             long=layout.seq is not None, rows_split=split,
+                             reset=sp.layout is ROWS_SPLIT)
+    q = args["int8"]  # the int8 KV cache in the long-context layout, from empty caches
+    mesh = _mesh(q["mesh"], world)
+    if mesh.member:
+        from repro_torch.models.attention import attention_options
+
+        model = _sharded(get_smoke_config(q["arch"]), args["states"][q["arch"]], mesh,
+                         trainable=False)
+        layout = model.spmd.serve_layout(1, q["max_len"])
+        with attention_options(kv_quant=True):
+            caches = model.init_caches(1, q["max_len"])
+            step = make_serve_step(model, layout)
+            lengths, seq = torch.zeros((1,), dtype=torch.int32), []
+            for t in q["tokens"]:
+                _, logits, caches, lengths = step(caches, t[None], lengths)
+                seq.append(logits)
+        out["int8"] = dict(logits=torch.stack(seq), long=layout.seq is not None,
+                           int8="k_q" in caches["kv"][0])
     return out
 
 
@@ -330,4 +380,4 @@ def _to_host(tree):
 
 
 JOBS = {"train": train_job, "serve_elastic": serve_elastic_job, "ef": ef_job,
-        "card_step": card_step_job}
+        "card_step": card_step_job, "serve_mesh": serve_mesh_job}

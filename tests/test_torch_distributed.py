@@ -260,7 +260,7 @@ def serve_elastic_run(tmp_path_factory):
         serve[arch] = (state, torch.as_tensor(toks))
     state, _ = _state("qwen1.5-4b")
     toks = torch.as_tensor(np.random.default_rng(32).integers(0, 512, (8, 33)))
-    args = dict(serve=serve, prompt=PROMPT, steps=STEPS, hybrid=_state("zamba2-1.2b")[0],
+    args = dict(serve=serve, prompt=PROMPT, steps=STEPS,
                 elastic=dict(arch="qwen1.5-4b", state=state, tokens=toks, steps=3, lr=LR))
     return J.spawn("serve_elastic", 4, tmp_path_factory.mktemp("serve"), args), args
 
@@ -286,14 +286,6 @@ def test_serving_on_a_mesh_equals_one_rank(serve_elastic_run, arch):
         seq.append(logits)
     torch.testing.assert_close(got["logits"], torch.stack(seq), rtol=1e-5, atol=1e-5)
     assert torch.equal(got["tokens"], torch.stack(greedy))
-
-
-def test_unported_serving_layouts_raise(serve_elastic_run):
-    """Hybrid serving on a mesh and the long-context cache layout (a
-    batch the data axes do not divide) raise instead of running."""
-    res, _ = serve_elastic_run
-    assert "ROADMAP.md" in res["refused_family"] and "hybrid" in res["refused_family"]
-    assert "long-context" in res["refused_long"]
 
 
 def test_elastic_remesh_equals_one_rank(serve_elastic_run):

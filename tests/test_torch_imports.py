@@ -70,6 +70,7 @@ def test_import_with_jax_blocked():
         "import repro_torch.launch.train\n"
         "import repro_torch.launch.mesh, repro_torch.launch.sharding\n"
         "import repro_torch.launch.spmd, repro_torch.launch.elastic\n"
+        "import repro_torch.launch.costs, repro_torch.launch.dryrun\n"
         "import repro_torch.core.simulator, repro_torch.core.network\n"
         "import chip_smoke\n"
         "import runpy\n"
@@ -210,8 +211,17 @@ def test_every_model_module_is_checked():
 def test_every_launch_module_is_checked():
     """The launchers beyond one card are among the sources checked for
     JAX and ``repro`` imports."""
-    for name in ("mesh", "sharding", "spmd", "elastic"):
+    for name in ("mesh", "sharding", "spmd", "elastic", "costs", "dryrun"):
         assert PORT / "launch" / f"{name}.py" in SOURCES, name
+
+
+def test_every_reference_module_has_a_counterpart():
+    """Every module of the JAX package has one of the same path in the
+    port (the port adds its own: the build, the device helpers, the
+    multi-rank step, the H100 lane)."""
+    ref = {p.relative_to(REF) for p in REF.rglob("*.py")}
+    port = {p.relative_to(PORT) for p in PORT.rglob("*.py")}
+    assert ref <= port, sorted(map(str, ref - port))
 
 
 def test_mesh_entry_points_raise_without_a_process_group():

@@ -482,6 +482,39 @@ def test_cuda_decode_attention_clamps_lengths():
     assert bool((got[1] == 0).all())
 
 
+# The log-sum-exp of the scaled scores: float32 sums in another order
+# than the plain version's, and ex2.approx (2**-22 relative) per key.
+_DECODE_LSE_TOL = dict(rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,lengths", [
+    (4, 8, 2, 600, 64, [0, 1, 600, 77]),          # length 0: out 0, lse -inf
+    (1, 32, 32, 262144, 64, [200000]),            # a long-context rank's chunk, many splits
+    (2, 32, 8, 16384, 128, [16384, 4097]),        # group 4, two head chunks in float32
+    (2, 24, 2, 700, 64, [700, 300]),              # group 12
+    (3, 4, 4, 77, 32, [1, 77, 40]),               # one split
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_decode_attention_lse(b, hq, hkv, s, d, lengths, dtype):
+    """``return_lse``: the same launch writes each row's log-sum-exp
+    beside ``out``; ``out`` is bit-equal to the call without it, and
+    both match the plain version's (out, lse)."""
+    dev = _cuda()
+    q, k, v = _qkv((b, hq, d), (b, hkv, s, d), dtype, dev, np.random.default_rng(s + b))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    plain = ops.decode_attention(q, k, v, lens)
+    ops.reset_launch_counts()
+    out, lse = ops.decode_attention(q, k, v, lens, return_lse=True)
+    assert ops.launch_counts()["decode_attention"] == 1
+    assert lse.dtype == torch.float32 and lse.shape == (b, hq)
+    assert torch.equal(out, plain)
+    want_out, want_lse = ref.decode_attention_ref(q, k, v, lens, return_lse=True)
+    torch.testing.assert_close(out, want_out, **_TOL[dtype])
+    empty = (lens <= 0)[:, None].expand_as(want_lse)
+    assert bool(torch.isneginf(lse[empty]).all())
+    torch.testing.assert_close(lse[~empty], want_lse[~empty], **_DECODE_LSE_TOL)
+
+
 def _decode_case(dev, dtype=torch.bfloat16):
     q, k, v = _qkv((4, 32, 128), (4, 8, 8192, 128), dtype, dev, np.random.default_rng(8))
     lens = torch.tensor([8192, 4500, 2049, 1], dtype=torch.int32, device=dev)
