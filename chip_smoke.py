@@ -64,8 +64,27 @@ feature_fused launched in the workers (each writes its counts on exit,
 Prints seconds and tiles/s beside phase 2's, the codec's bytes, the
 relay's bytes, each worker's transport counters and peak RSS.
 
+Phase 6b (right after phase 6): phase 6 once more with locality off
+(``locality_aware=False`` in the Manager, ``extra={"locality": False}``
+in the workers), predictive push on: a tile's features stage may now
+land on the worker that does not hold its segmentation, so regions
+cross worker to worker as tensors on the data plane. Phase 6's checks,
+and more than 0 regions crossed (pushes ingested), no region relayed by
+the Manager. Prints the bytes that crossed and the seconds beside phase
+6's. (With push off, regions pulled from the sibling, the crossing is
+held by ``tests/test_torch_transport.py`` on the CPU.)
+
 Phase 3: one 256x256 tile through ``run_tile`` on the card and through
 the numpy path, at the bars of the reference's ``tests/test_app.py``.
+
+Phase 3b (the last phase): phase 2's tile 0 (4096x4096) through
+``run_tile`` on the card, against the numpy path, which runs in a process
+spawned at the top of ``main`` (minutes of one host core; it overlaps
+every other phase): ``n_objects`` equal, mask agreement above 0.999,
+``feat_haralick`` at rtol 1e-4, atol 1e-5, every other ``feat_*`` at
+rtol 1e-3, atol 1e-4. Prints the largest label id before renumbering
+beside 2**24 (label ids are int32), and the numpy path's seconds per op
+at 4096x4096.
 
 Phase 8 (run right after phase 3), the hybrid node: 4 tiles of
 1024x1024 (mosaics of phase 2's tile pool) with ``build_workflow()``
@@ -100,6 +119,14 @@ within 2e-2 (the whole bfloat16 model's error is printed, not checked:
 one-ulp rounding differences between the devices spread through the
 later layers beyond 2e-2).
 
+Phase 5b: the dry run's bytes against the card's: qwen1.5-4b at its
+published widths cut to 8 layers, a serving prefill of 4 x 1024 into
+caches of 2048, once on ``meta`` under ``launch/dryrun.py``'s
+``LiveBytes`` (arguments plus the peak of live storage) and once on the
+card (arguments plus the step's ``max_memory_allocated()``, both less
+the bytes held before); fails on a ratio card / dry run outside
+``DRYRUN_BAND``.
+
 Phase 1 also holds the two backward kernels of the training path to
 their plain backward versions: flash_attention at the training shape
 (B=4, H=32, S=1024, D=64, bf16, causal), a ragged S=1000, float32 and
@@ -108,7 +135,9 @@ F=64*64, float32. A repeated call must give the same bits; the bf16
 flash backward must launch ``bwd_kernels`` device kernels per call
 (profiler), the scan backward one; times as above, with SDPA's backward
 beside flash's at the training and GQA shapes, itself held to the bf16
-bar against the plain backward on its own out, and beside the scan
+bar against the plain backward on its own out; the float32 backward is
+timed too, at phase 7b's shape and at one rank's of phase 10 (b)
+(``float32_bwd_shapes``), beside SDPA's float32 backward; beside the scan
 backward a PyTorch add of the same bytes, its plan and its time with L2
 flushed clean.
 
@@ -127,7 +156,10 @@ parameter within 1e-6 plus what the gradients' difference can move
 AdamW's first step (see ``phase_train_card_vs_cpu``). Phase 7c: smoke zamba2
 trained to a checkpoint under ``build/`` and resumed: the restored
 state equal to the saved one, the resumed run ending at step 20 after
-at most 12 chunks; the directory is removed.
+at most 12 chunks; the directory is removed. Phase 7d: five bf16 steps
+of smoke zamba2 on the card and on the CPU from the same weights and
+tokens (the run of ``tests/test_torch_train.py``'s bf16 curve): every
+loss within rtol/atol 2e-2 of the CPU's, the last below the first.
 
 Phase 9 (after 7c), every other family of the model zoo at its
 published widths from seeded weights, drawn tensor by tensor on the
@@ -197,7 +229,10 @@ rank, bytes staged a step. (b) float32 against one rank holding the
 whole cache: zamba2 cut to 7 layers and qwen1.5-4b to 2, batch 1, cache
 8,192 on (2, 1), prompt 5,120 (every rank prefills it and keeps its
 half of the caches), 16 decode steps teacher-forced on one rank's greedy
-tokens: logits within 1e-4, the same greedy tokens. (c) zamba2-1.2B,
+tokens: logits within 1e-4, the same greedy tokens; and the int8 KV
+cache's chain of ``tests/test_torch_long_context.py`` (smoke qwen1.5-4b,
+float32, 20 teacher-forced steps from empty caches of 32 on (2, 1))
+against one rank's int8 chain at rtol/atol 1e-5. (c) zamba2-1.2B,
 xlstm-125m and whisper-small at full width on (1, 2): prefill 4 x 1024
 (whisper: its 1500 frames and a 384-token decoder prompt), 16 greedy
 steps, bf16 timings; then each at 2 layers (zamba2 at 7) in float32
@@ -990,7 +1025,9 @@ def long_shapes() -> tuple[dict, dict, frozenset]:
     the two meshes and each published config. (b): each model's float32
     prefill of the whole prompt (every rank prefills it) and its decode
     with ``return_lse`` over its chunk of the cache at the last step:
-    the first rank's chunk full, the second's prefix. (c): each family's
+    the first rank's chunk full, the second's prefix; and the int8
+    chain's (``LONG_INT8``, smoke widths, float32) over each rank's chunk
+    at its last step. (c): each family's
     prefill (whisper: the encoder over its frames, non-causal, and the
     decoder's prompt) and its decode over its cache at the last step,
     its heads split over the model axis as the plan pads them; bf16 at
@@ -998,7 +1035,7 @@ def long_shapes() -> tuple[dict, dict, frozenset]:
     launch is ``DECODE_SHAPES["long_ctx_rank"]``. -> (flash (B, H, Hkv,
     S, D, causal, dtype), decode (B, Hq, Hkv, S, D, lengths, dtype), the
     decode keys launched with ``return_lse``)."""
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.models.plan import plan_attention
 
     flash, decode, lse = {}, {}, set()
@@ -1014,6 +1051,14 @@ def long_shapes() -> tuple[dict, dict, frozenset]:
             decode[key] = (1, *heads, chunk, d, [min(chunk, max(0, valid - r * chunk))],
                            "float32")
             lse.add(key)
+    q = LONG_INT8
+    cfg = get_smoke_config(q["arch"])
+    chunk = q["max_len"] // ranks
+    for r in range(ranks):
+        key = f"{q['arch']} smoke (b) int8 rank {r}"
+        decode[key] = (1, cfg.n_heads, cfg.n_kv_heads, chunk, cfg.resolved_head_dim,
+                       [min(chunk, max(0, q["steps"] - r * chunk))], "float32")
+        lse.add(key)
     tp, sv = FAMILY_MESH[1], MESH_SERVE
     for arch, spec in MESH_FAMILIES.items():
         cfg = get_config(arch)
@@ -1339,10 +1384,15 @@ def _peak_rss(who) -> int:
     return resource.getrusage(who).ru_maxrss * 1024  # KiB on Linux
 
 
-def phase_processes(tiles, want: dict) -> dict:
+def phase_processes(tiles, want: dict, locality: bool = True,
+                    label: str = "phase 6") -> dict:
     """The fused workflow on ``tiles`` through a Manager here and
     ``MP_WORKERS`` spawned worker processes on the card; ``want``:
-    phase 2's fused features per tile."""
+    phase 2's fused features per tile. ``locality`` sets the Manager's
+    locality-aware leases and the workers' locality; predictive push is
+    on. Without locality (phase 6b) the regions that crossed worker to
+    worker (pushes ingested) must be more than 0, and the Manager must
+    relay none."""
     import os
     import resource
     import shutil
@@ -1368,7 +1418,7 @@ def phase_processes(tiles, want: dict) -> dict:
         [DataChunk(i, payload=t) for i, t in enumerate(tiles)],
     )
     mgr = Manager(cw, ManagerConfig(
-        window=2, heartbeat_timeout=60, locality_aware=True, predictive_push=True,
+        window=2, heartbeat_timeout=60, locality_aware=locality, predictive_push=True,
         backup_tasks=False, rpc_timeout=MP_RPC_TIMEOUT))
     endpoint = T.ManagerEndpoint(mgr, T.SocketBus())
     K.reset_launch_counts()
@@ -1376,19 +1426,19 @@ def phase_processes(tiles, want: dict) -> dict:
     procs = [
         T.spawn_worker(endpoint.address, T.WorkerSpec(
             worker_id=wid, registry="repro_torch.app.pipeline:wsi_registry_cuda",
-            lanes=(("gpu", 0),), policy="pats", extra={"locality": True}))
+            lanes=(("gpu", 0),), policy="pats", extra={"locality": locality}))
         for wid in range(MP_WORKERS)
     ]
     try:
         check(endpoint.wait_workers(MP_WORKERS, timeout=300.0),
-              f"phase 6: {len(endpoint.proxies)} of {MP_WORKERS} workers registered")
+              f"{label}: {len(endpoint.proxies)} of {MP_WORKERS} workers registered")
         startup_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         ok = mgr.run(timeout=900.0)
         seconds = time.perf_counter() - t0
-        check(ok, "phase 6: Manager.run did not finish")
+        check(ok, f"{label}: Manager.run did not finish")
         done, total = mgr.progress()
-        check(done == total == 2 * len(tiles), f"phase 6: {done}/{total} stages")
+        check(done == total == 2 * len(tiles), f"{label}: {done}/{total} stages")
         stats = {wid: proxy.stats() for wid, proxy in sorted(endpoint.proxies.items())}
         feats: dict[int, dict] = {}
         for si in cw.stage_instances.values():
@@ -1413,30 +1463,44 @@ def phase_processes(tiles, want: dict) -> dict:
                 proc.kill()
                 proc.join(timeout=10.0)
         os.environ.pop(LAUNCH_LOG_ENV, None)
-    check(codes == [0] * MP_WORKERS, f"phase 6: worker exit codes {codes}")
-    check(sum(K.launch_counts().values()) == 0, "phase 6: kernels launched in the Manager")
+    check(codes == [0] * MP_WORKERS, f"{label}: worker exit codes {codes}")
+    check(sum(K.launch_counts().values()) == 0, f"{label}: kernels launched in the Manager")
     logs = sorted(launch_dir.glob("launches-*.json"))
-    check(len(logs) == MP_WORKERS, f"phase 6: {len(logs)} launch logs")
+    check(len(logs) == MP_WORKERS, f"{label}: {len(logs)} launch logs")
     per_worker = [json.loads(f.read_text()) for f in logs]
     launches = {k: sum(c[k] for c in per_worker) for k in per_worker[0]}
     check(launches["morph_recon"] > 0 and launches["feature_fused"] > 0,
-          f"phase 6: kernels not launched in the workers: {launches}")
-    check(sorted(stats) == list(range(MP_WORKERS)), f"phase 6: workers {sorted(stats)}")
+          f"{label}: kernels not launched in the workers: {launches}")
+    check(sorted(stats) == list(range(MP_WORKERS)), f"{label}: workers {sorted(stats)}")
     for wid, st in stats.items():
-        check(st["executed"] > 0, f"phase 6: worker {wid} ran no op")
+        check(st["executed"] > 0, f"{label}: worker {wid} ran no op")
         off_lane = {op: k for op, k in st["profile"].items() if set(k) != {"gpu"}}
-        check(not off_lane, f"phase 6: worker {wid} ops off the gpu lane: {off_lane}")
+        check(not off_lane, f"{label}: worker {wid} ops off the gpu lane: {off_lane}")
         tr = st["transport"]
         check(tr["crc_rejects"] == 0 and tr["push_crc_rejects"] == 0,
-              f"phase 6: worker {wid} CRC rejects {tr}")
-    check(sorted(feats) == list(range(len(tiles))), f"phase 6: tiles {sorted(feats)}")
+              f"{label}: worker {wid} CRC rejects {tr}")
+    check(sorted(feats) == list(range(len(tiles))), f"{label}: tiles {sorted(feats)}")
     for cid, got in feats.items():
         check(got["n_objects"] == want[cid]["n_objects"],
-              f"phase 6: tile {cid} n_objects {got['n_objects']} != {want[cid]['n_objects']}")
+              f"{label}: tile {cid} n_objects {got['n_objects']} != {want[cid]['n_objects']}")
         for key in FEAT_KEYS:
             np.testing.assert_allclose(got[key], want[cid][key], rtol=1e-3, atol=1e-4,
-                                       err_msg=f"phase 6: tile {cid} {key}")
+                                       err_msg=f"{label}: tile {cid} {key}")
+    tr = [st["transport"] for st in stats.values()]
+    crossed = dict(
+        push_ingested=sum(st["push_ingested"] for st in stats.values()),
+        pushed_bytes=sum(t["pushed_bytes"] for t in tr),
+        direct_keys=sum(st.get("prefetch", {}).get("direct_keys", 0) for st in stats.values()),
+        direct_bytes=sum(st.get("prefetch", {}).get("direct_bytes", 0)
+                         for st in stats.values()),
+        served_regions=sum(t["served_regions"] for t in tr),
+        served_bytes=sum(t["served_bytes"] for t in tr),
+    )
+    if not locality:
+        check(wire["relay_bytes"] == 0, f"{label}: the Manager relayed {wire['relay_bytes']} B")
+        check(crossed["push_ingested"] > 0, f"{label}: no region pushed across: {crossed}")
     return dict(
+        label=label, locality=locality, crossed=crossed,
         tiles=len(tiles), seconds=seconds, tiles_per_s=len(tiles) / seconds,
         startup_s=startup_s, wire=wire, launches=launches,
         launches_per_worker=per_worker,
@@ -1451,12 +1515,16 @@ def phase_processes(tiles, want: dict) -> dict:
     )
 
 
-def log_processes(res: dict, phase2: dict) -> None:
+def log_processes(res: dict, phase2: dict, phase6: dict | None = None) -> None:
+    """``phase6``: phase 6's result, beside which phase 6b's is printed."""
     gib = 2 ** 30
-    log(f"  {res['tiles']} tiles in {res['seconds']:.2f} s across {MP_WORKERS} worker "
+    log(f"  {res['label']} (locality {res['locality']}, predictive push True): "
+        f"{res['tiles']} tiles in {res['seconds']:.2f} s across {MP_WORKERS} worker "
         f"processes: {res['tiles_per_s']:.4f} tiles/s (phase 2 in process, fused, "
-        f"8 tiles: {phase2['tiles_per_s']:.4f} tiles/s); workers up in "
-        f"{res['startup_s']:.2f} s")
+        f"8 tiles: {phase2['tiles_per_s']:.4f} tiles/s"
+        + ("" if phase6 is None else f"; phase 6 {phase6['seconds']:.2f} s") +
+        f"); workers up in {res['startup_s']:.2f} s")
+    log(f"  crossed worker to worker: {json.dumps(res['crossed'])}")
     w = res["wire"]
     log(f"  Manager codec: encoded {w['encoded_bytes']} B, decoded {w['decoded_bytes']} B "
         f"({w['decoded_bytes'] / res['tiles'] / gib:.3f} GiB per tile); relay "
@@ -1468,7 +1536,7 @@ def log_processes(res: dict, phase2: dict) -> None:
             f"transport {json.dumps(res['transport'][wid])}, "
             f"prefetch {json.dumps(res['prefetch'][wid])}")
     log(f"  Manager peak RSS {res['manager_peak_rss'] / gib:.2f} GiB "
-        f"({res['manager_peak_rss_before'] / gib:.2f} GiB before phase 6); largest "
+        f"({res['manager_peak_rss_before'] / gib:.2f} GiB before {res['label']}); largest "
         f"child's peak RSS {res['children_peak_rss'] / gib:.2f} GiB")
     log(f"  kernel launches in the workers: {json.dumps(res['launches_per_worker'])}")
 
@@ -1506,6 +1574,108 @@ def check_close(got, want, rtol: float, atol: float, what: str) -> None:
     bad = int((err > atol + rtol * np.abs(want.astype(np.float64))).sum())
     check(bad == 0, f"{what}: {bad} elements beyond rtol {rtol} atol {atol}, "
                     f"max abs err {float(err.max()) if err.size else 0.0:.3g}")
+
+
+# --------------------------------------------------------------------------
+# phase 3b: a whole 4096x4096 tile, card vs numpy
+# --------------------------------------------------------------------------
+
+#: Phase 3b, the last phase, waits at most this long for the numpy path,
+#: which runs in a process spawned at the top of ``main`` (775 s of one
+#: host core at 4096x4096 beside phases 6, 6b and 11 on an H100's host),
+#: so that the whole script stays within 1200 s.
+WHOLE_TILE_WAIT_S = 300.0
+
+
+def _numpy_whole_tile(out) -> None:
+    """The spawned process of phase 3b: phase 2's tile 0 made anew from
+    its seed, through the numpy path op by op; puts on ``out`` what
+    phase 3b compares (or the error, so that phase 3b fails at once)."""
+    import traceback
+    import zlib
+
+    try:
+        tile = mosaic_tiles(1, TILE)[0]  # the first tile of any mosaic_tiles(n, TILE)
+        t0 = time.perf_counter()
+        state, seconds = numpy_op_seconds(tile)
+        out.put(dict(crc=zlib.crc32(tile), n_objects=state["n_objects"], mask=state["mask"],
+                     labels_max=int(state["labels"].max()),
+                     feats={k: state[k] for k in FEAT_KEYS}, seconds=seconds,
+                     total_s=time.perf_counter() - t0))
+    except BaseException:
+        out.put(dict(error=traceback.format_exc()))
+        raise
+
+
+def start_numpy_whole_tile() -> tuple:
+    """Spawn :func:`_numpy_whole_tile` (a daemon: it ends with this
+    process) -> (process, its queue, the start time)."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    proc = ctx.Process(target=_numpy_whole_tile, args=(out,), daemon=True,
+                       name="numpy-whole-tile")
+    proc.start()
+    return proc, out, time.perf_counter()
+
+
+def phase_whole_tile(tile, job: tuple) -> dict:
+    """Phase 3b: ``tile`` (phase 2's tile 0) through ``run_tile`` on the
+    card, against the numpy path's result from ``job``
+    (:func:`start_numpy_whole_tile`) at phase 8's bars: ``n_objects``
+    equal, mask agreement above 0.999, ``feat_haralick`` at rtol 1e-4,
+    atol 1e-5 and every other ``feat_*`` at rtol 1e-3, atol 1e-4. Prints
+    the largest label id each path reaches before renumbering (the
+    watershed's labels, a component's least linear index + 1) beside
+    2**24, and the numpy path's seconds per op."""
+    import queue
+    import zlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.app import run_tile
+
+    proc, out, started = job
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = run_tile(tile, "accel", device="cuda")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    card = dict(n_objects=s["n_objects"], mask=s["mask"].cpu().numpy(),
+                labels_max=int(s["labels"].max()), feats={k: s[k] for k in FEAT_KEYS})
+    del s
+    t0 = time.perf_counter()
+    try:
+        res = out.get(timeout=WHOLE_TILE_WAIT_S)
+    except queue.Empty:
+        raise CheckFailed(f"phase 3b: no result from the numpy path after "
+                          f"{time.perf_counter() - started:.0f} s") from None
+    waited = time.perf_counter() - t0
+    proc.join(timeout=60.0)
+    check("error" not in res, f"phase 3b: the numpy path failed:\n{res.get('error')}")
+    check(proc.exitcode == 0, f"phase 3b: the numpy process exited {proc.exitcode}")
+    check(res["crc"] == zlib.crc32(tile), "phase 3b: the numpy path's tile is not phase 2's tile 0")
+    check(card["n_objects"] == res["n_objects"],
+          f"phase 3b: n_objects card {card['n_objects']} != numpy {res['n_objects']}")
+    agree = float((card["mask"] == res["mask"]).mean())
+    check(agree > 0.999, f"phase 3b: mask agreement {agree}")
+    for key in FEAT_KEYS:
+        tol = (1e-4, 1e-5) if key == "feat_haralick" else (1e-3, 1e-4)
+        check_close(card["feats"][key], res["feats"][key], *tol,
+                    f"phase 3b: {key}, card against numpy")
+    h, w = tile.shape[:2]
+    log(f"  {h}x{w}: card {card_s:.3f} s, numpy {res['total_s']:.2f} s in its own process "
+        f"(waited {waited:.2f} s for it here); n_objects {card['n_objects']}, mask agreement "
+        f"{agree:.6f}, every feat_* within its bar")
+    log(f"  largest label id before renumbering: card {card['labels_max']}, numpy "
+        f"{res['labels_max']}; 2**24 = {2 ** 24}, h*w = {h * w}")
+    log(f"  numpy path's seconds per op at {h}x{w} (one host core, beside every other phase "
+        "in the main process): " + json.dumps({k: float(f"{v:.6g}") for k, v in res["seconds"].items()}))
+    return dict(n_objects=card["n_objects"], mask_agreement=agree, card_s=card_s,
+                numpy_s=res["total_s"], waited_s=waited, numpy_op_s=res["seconds"],
+                labels_max=card["labels_max"], numpy_labels_max=res["labels_max"])
 
 
 # --------------------------------------------------------------------------
@@ -1600,6 +1770,21 @@ def phase_hybrid() -> dict:
     for res in runs.values():
         del res["registry"], res["feats"]
     return dict(runs=runs, fig7=fig7, numpy_s=numpy_s, mask_agreement=agree, seconds=seconds)
+
+
+def float32_bwd_shapes() -> dict:
+    """The float32 flash backward's launches on the paths: phase 7b's
+    (``TRAIN``'s model, batch 1 x 256) and one rank's of phase 10 (b)
+    (``DIST``'s model on a model axis of 2, ``DIST_SMALL``'s batch):
+    (B, H, Hkv, S, D)."""
+    from repro_torch.configs import get_config
+
+    z, q = get_config(TRAIN["arch"]), get_config(DIST["arch"])
+    return {
+        "phase 7b": (1, z.n_heads, z.n_kv_heads, 256, z.resolved_head_dim),
+        "phase 10 (b) rank": (DIST_SMALL["batch"], q.n_heads // 2, q.n_kv_heads // 2,
+                              DIST_SMALL["seq"], q.resolved_head_dim),
+    }
 
 
 def phase_backward_kernels() -> dict:
@@ -1703,16 +1888,17 @@ def phase_backward_kernels() -> dict:
             f"on its own out, max abs err dq, dk, dv {[float(f'{e:.3g}') for e in errs]}")
         return sdpa_bwd
 
-    def kernel_record(b, h, hkv, s, d, err, args, sdpa_bwd):
+    def kernel_record(b, h, hkv, s, d, err, args, sdpa_bwd, dt=torch.bfloat16):
         fn = lambda: FA.flash_attention_bwd_cuda(*args)  # noqa: E731
         per_call = device_kernels_per_call(fn)
-        want = FA.bwd_kernels(torch.bfloat16, h // hkv)
-        check(per_call == want, f"flash_attention backward H={h} Hkv={hkv}: {per_call:g} "
+        want = FA.bwd_kernels(dt, h // hkv)
+        check(per_call == want, f"flash_attention backward H={h} Hkv={hkv} {dt}: {per_call:g} "
               f"device kernels per call, not {want}")
         elems, kv_elems, tri = b * h * s * d, b * hkv * s * d, b * h * s * (s + 1) / 2
         # q, o, dout, dq (B, H, S, D), k, v, dk, dv (B, Hkv, S, D) and lse, once
-        nbytes = 2 * (4 * elems + 4 * kv_elems) + 4 * b * h * s
-        bms, by = bound(nbytes, 5 * 2.0 * tri * d, BF16_FLOPS)
+        nbytes = args[0].element_size() * (4 * elems + 4 * kv_elems) + 4 * b * h * s
+        bms, by = bound(nbytes, 5 * 2.0 * tri * d,
+                        F32_FLOPS if dt == torch.float32 else BF16_FLOPS)
         return dict(shape=[b, h, hkv, s, d], max_abs_err=err, kernels_per_call=per_call,
                     ms=time_ms(fn, 10, flush),
                     plain_ms=time_ms(lambda: ref.flash_attention_bwd_ref(*args), 3, flush),
@@ -1720,6 +1906,12 @@ def phase_backward_kernels() -> dict:
 
     flash_case(2, 8, 2, 1000, 64, torch.bfloat16, "ragged")
     flash_case(2, 8, 8, 1000, 64, torch.float32, "float32")
+    f32 = {}
+    for key, (b, h, hkv, s, d) in float32_bwd_shapes().items():
+        err, args = flash_case(b, h, hkv, s, d, torch.float32, key)
+        f32[key] = kernel_record(b, h, hkv, s, d, err, args, sdpa_case(args, key),
+                                 torch.float32)
+        del args
     b, h, hkv, s, d = 1, 32, 8, 1024, 128
     err, args = flash_case(b, h, hkv, s, d, torch.bfloat16, "GQA")
     gqa = kernel_record(b, h, hkv, s, d, err, args, sdpa_case(args, "GQA"))
@@ -1732,7 +1924,7 @@ def phase_backward_kernels() -> dict:
     err, args = flash_case(b, h, h, s, d, torch.bfloat16, "training shape")
     results["flash_attention_bwd"] = dict(
         kernel_record(b, h, h, s, d, err, args, sdpa_case(args, "training shape")),
-        gqa_d128=gqa, **{key: rank})
+        gqa_d128=gqa, **{key: rank}, float32=f32)
     del args
     gc.collect()
     torch.cuda.empty_cache()
@@ -2034,6 +2226,66 @@ def phase_train_resume() -> dict:
     log(f"  restored state equal to the saved one; resumed to step {res['final_step']} "
         f"reading {res['chunks']} chunks; losses {[round(x, 4) for x in res['losses']]}")
     return res
+
+
+#: Phase 7d: the bar and the run of ``tests/test_torch_train.py::
+#: test_train_loss_curve_bfloat16_matches_reference``: smoke zamba2,
+#: bfloat16 activations over float32 masters, AdamW at 1e-3, the same
+#: batch of 2 x 33 tokens five times.
+BF16_CURVE = dict(batch=2, seq=33, steps=5, lr=1e-3, seed=8, tol=2e-2)
+
+
+def phase_train_bf16_curve() -> dict:
+    """Phase 7d: five ``make_train_step`` steps of smoke zamba2 in
+    bfloat16 from the same weights and tokens on the CPU (plain
+    versions) and on the card (kernels): every loss within rtol/atol
+    ``BF16_CURVE["tol"]`` of the CPU's, the card's last below its first,
+    and the flash and scan kernels launched forward and backward."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops as K
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.train import TrainState, make_train_step
+
+    c = BF16_CURVE
+    cfg = get_smoke_config(TRAIN["arch"])
+    toks = torch.as_tensor(np.random.default_rng(c["seed"]).integers(
+        0, cfg.vocab_size, (c["batch"], c["seq"])))
+    cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(c["seed"]),
+                      trainable=True, act_dtype=torch.bfloat16)
+    card = copy.deepcopy(cpu).to(torch.device("cuda", 0))
+    losses = {}
+    K.reset_launch_counts()
+    for name, model in (("cpu", cpu), ("card", card)):
+        opt = AdamW(lr=c["lr"])
+        params = dict(model.named_parameters())
+        state = TrainState(params, opt.init(params))
+        step = make_train_step(model, opt)
+        batch = {"tokens": toks.to(next(iter(params.values())).device)}
+        losses[name] = []
+        for _ in range(c["steps"]):
+            state, metrics = step(state, batch)
+            losses[name].append(float(metrics["loss"]))
+    counts = K.launch_counts()
+    for name in ("flash_attention", "flash_attention_bwd", "mamba2_chunk_scan",
+                 "mamba2_chunk_scan_bwd"):
+        check(counts[name] > 0, f"phase 7d launched no {name} kernel")
+    check_close(losses["card"], losses["cpu"], c["tol"], c["tol"],
+                "phase 7d: bf16 loss curve, card against CPU")
+    check(losses["card"][-1] < losses["card"][0], f"phase 7d: loss did not fall: {losses['card']}")
+    err = float(np.abs(np.subtract(losses["card"], losses["cpu"])).max())
+    log(f"  losses card {[round(x, 6) for x in losses['card']]}, CPU "
+        f"{[round(x, 6) for x in losses['cpu']]}: max abs difference {err:.3g} (bar "
+        f"{c['tol']} + {c['tol']} x |CPU|); launches {counts}")
+    del cpu, card
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, max_abs_diff=err, launches=counts)
 
 
 # --------------------------------------------------------------------------
@@ -2546,6 +2798,85 @@ def phase_card_vs_cpu() -> dict:
         f"launches {counts}")
     del bf16_cpu, bf16_card
     return dict(float32=f32_errs, bfloat16_blocks=block_errs, bfloat16_whole=whole)
+
+
+#: Phase 5b: one step that fits the card, counted by the dry run's
+#: ``LiveBytes`` on ``meta`` and measured by the card's allocator:
+#: qwen1.5-4b at its published widths cut to 8 layers, serving (bf16
+#: weights), prefill of 4 x 1024 into caches of 2048.
+DRYRUN_STEP = dict(arch="qwen1.5-4b", layers=8, batch=4, prompt=1024, max_len=2048, seed=21)
+#: The band the card's bytes over the dry run's must lie in (``PERF.md``
+#: section 2 says why): the card adds a few percent (the allocator rounds
+#: each block up to 512 B and holds cuBLAS's workspace; the kernel
+#: wrappers' copies and scratch are not made by their ``meta`` entries),
+#: while the smallest tensor class a miscount could drop or double, the
+#: KV caches, is 17% of the dry run's 3.88 GB.
+DRYRUN_BAND = (0.9, 1.1)
+
+
+def phase_dryrun_bytes() -> dict:
+    """Phase 5b: ``DRYRUN_STEP``'s prefill on ``meta`` under
+    ``launch/dryrun.py``'s ``LiveBytes`` (the arguments' bytes plus the
+    peak of live storage during the step, as the dry run records
+    ``peak_live_bytes``), then on the card from seeded weights: the
+    arguments' bytes after a warm-up step (weights, tokens, cuBLAS's
+    workspace) plus the step's ``max_memory_allocated()``, both less the
+    bytes held before the model was built. Fails on a ratio card / meta
+    outside ``DRYRUN_BAND``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import LiveBytes, _tree_bytes
+    from repro_torch.models import Model, build_model, make_plan
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import stored
+    from repro_torch.train import make_prefill_step
+
+    d = DRYRUN_STEP
+    cfg = dataclasses.replace(get_config(d["arch"]), n_layers=d["layers"])
+    toks = np.random.default_rng(d["seed"]).integers(0, cfg.vocab_size, (d["batch"], d["prompt"]))
+    with torch.device("meta"):
+        plan = make_plan(cfg)
+        model = Model(cfg, plan, T.init_model_params(
+            None, cfg, plan, "meta", store=lambda name, t: stored(name, t, False)), False, None)
+        inputs = {"tokens": torch.empty(toks.shape, dtype=torch.int32)}
+        meta_args = _tree_bytes((inputs, dict(model.named_parameters())))
+        live = LiveBytes()
+        with live:
+            out = make_prefill_step(model, d["max_len"])(inputs)
+        del out, model, inputs
+    meta = dict(args=meta_args, temp=live.peak, total=meta_args + live.peak)
+
+    dev = torch.device("cuda", 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    model = build_model(cfg, device=dev, seed=d["seed"])
+    inputs = {"tokens": torch.as_tensor(toks, dtype=torch.int32, device=dev)}
+    step = make_prefill_step(model, d["max_len"])
+    out = step(inputs)  # warm-up: cuBLAS's workspace, the kernels' first launch
+    del out
+    torch.cuda.synchronize()
+    card_args = torch.cuda.memory_allocated() - before
+    torch.cuda.reset_peak_memory_stats()
+    out = step(inputs)
+    torch.cuda.synchronize()
+    card_total = torch.cuda.max_memory_allocated() - before
+    del out, model, inputs, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = dict(args=card_args, temp=card_total - card_args, total=card_total)
+    ratio = card_total / meta["total"]
+    log(f"  {d}: dry run on meta {json.dumps(meta)} B; card {json.dumps(card)} B; card / dry "
+        f"run {ratio:.6f} (band {DRYRUN_BAND[0]}-{DRYRUN_BAND[1]}), arguments "
+        f"{card_args / meta_args:.6f}, temporaries {card['temp'] / max(meta['temp'], 1):.6f}")
+    check(DRYRUN_BAND[0] <= ratio <= DRYRUN_BAND[1],
+          f"phase 5b: the card's bytes are {ratio:.4f} of the dry run's")
+    return dict(meta=meta, card=card, ratio=ratio)
 
 
 def phase_main_path(tiles) -> dict:
@@ -3222,6 +3553,16 @@ LONG = dict(arch="zamba2-1.2b", max_len=524288, filled=400000, steps=16, seed=31
 #: zamba2 with one shared-attention application, qwen1.5-4b at 2 layers.
 LONG_SMALL = dict(layers={"zamba2-1.2b": 7, "qwen1.5-4b": 2}, max_len=8192, prompt=5120,
                   steps=16, seed=32)
+#: (b) also: the int8 KV cache (``attention_options(kv_quant=True)``) in
+#: the long-context layout, the chain of ``tests/test_torch_long_context.py
+#: ::test_int8_cache_in_the_long_context_layout_equals_one_rank`` on the
+#: card: smoke qwen1.5-4b in float32, 20 teacher-forced decode steps from
+#: empty caches of 32 positions on (2, 1), so the second rank's chunk is
+#: empty for the first 16, against one rank's int8 chain at rtol/atol
+#: 1e-5. At the smoke widths a float32 difference of the merge moves few
+#: values near a code's rounding edge; the two chains part by a code
+#: where one does, and the logits then by far more than 1e-5.
+LONG_INT8 = dict(arch="qwen1.5-4b", max_len=32, steps=20, seed=62, tol=1e-5)
 #: (c): the families whose serving on a mesh is new, at full width on
 #: (1, 2), bf16; then at ``small_layers`` in float32 against one rank.
 MESH_FAMILIES = {
@@ -3289,6 +3630,58 @@ def _against_one_rank(rank: int, mesh, cfg, inputs: dict, batch: int, n: int, ma
     del got, want
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def _int8_chain(model, tokens, max_len: int, layout=None):
+    """Decode ``tokens`` one by one from empty int8 caches (on a mesh in
+    ``layout``) -> the logits of each step (steps, 1, V)."""
+    import torch
+
+    from repro_torch.models.attention import attention_options
+    from repro_torch.train import make_serve_step
+
+    with attention_options(kv_quant=True):
+        caches = model.init_caches(1, max_len)
+        check("k_q" in caches["kv"][0], "phase 11 (b) int8: the caches are not int8")
+        step = make_serve_step(model, layout)
+        lengths = torch.zeros((1,), dtype=torch.int32, device=tokens.device)
+        seq = []
+        for t in tokens:
+            _, logits, caches, lengths = step(caches, t[None], lengths)
+            seq.append(logits)
+    return torch.stack(seq)
+
+
+def _long_int8(rank: int, mesh) -> dict:
+    """(b)'s int8 chain (``LONG_INT8``) on ``mesh`` (2, 1) against rank
+    0 alone; rank 0 checks."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops as K
+    from repro_torch.models import build_model
+
+    q = LONG_INT8
+    dev = torch.device("cuda", 0)
+    cfg = get_smoke_config(q["arch"])
+    toks = torch.as_tensor(np.random.default_rng(q["seed"]).integers(
+        0, cfg.vocab_size, q["steps"]), dtype=torch.int32, device=dev)
+    want = None
+    if rank == 0:
+        want = _int8_chain(build_model(cfg, device=dev, seed=q["seed"]).float(), toks,
+                           q["max_len"])
+    K.reset_launch_counts()
+    model = build_model(cfg, device=dev, seed=q["seed"], mesh=mesh).float()
+    layout = model.spmd.serve_layout(1, q["max_len"])
+    check(layout.seq is not None, "phase 11 (b) int8: not the long-context layout")
+    got = _int8_chain(model, toks, q["max_len"], layout)
+    out = {"launches": K.launch_counts()}
+    if rank == 0:
+        check_close(got.cpu(), want.cpu(), q["tol"], q["tol"],
+                    f"phase 11 (b) int8 chain on (2, 1) against one rank")
+        out["logits_max_abs_err"] = float((got - want).abs().max())
     return out
 
 
@@ -3371,6 +3764,7 @@ def _long_b(rank: int, mesh) -> dict:
         out[arch] = _against_one_rank(
             rank, mesh, cfg, {"tokens": toks}, 1, b["prompt"], b["max_len"], b["steps"],
             b["seed"], f"phase 11 (b) {arch} {layers} layers, cache {b['max_len']} on (2, 1)")
+    out["int8"] = _long_int8(rank, mesh)
     return out
 
 
@@ -3499,13 +3893,20 @@ def phase_long_context() -> dict:
         f"rank; staged {a[0]['staged_bytes_per_step']:.4g} bytes a step and rank, "
         f"collectives {a[0]['collective_bytes_per_step']}; decode_attention launches with lse "
         f"{[r['launches']['decode_attention'] for r in a]}; tokens {a[0]['last_tokens']}")
-    for arch, r in res[0]["b"].items():
+    for arch in (*LONG_SMALL["layers"], "int8"):
         check(all(x["b"][arch]["launches"]["decode_attention"] > 0 for x in res),
               f"phase 11 (b) {arch}: a rank launched no decode_attention")
+    for arch in LONG_SMALL["layers"]:
+        r = res[0]["b"][arch]
         log(f"  (b) {arch} {LONG_SMALL['layers'][arch]} layers float32, cache "
             f"{LONG_SMALL['max_len']} on (2, 1), prompt {LONG_SMALL['prompt']}: logits "
             f"{r['logits_max_abs_err']:.3g} from one rank's over {LONG_SMALL['steps'] + 1} "
             f"steps; launches {r['launches']}")
+    r = res[0]["b"]["int8"]
+    log(f"  (b) int8 KV cache, smoke {LONG_INT8['arch']} float32, {LONG_INT8['steps']} "
+        f"teacher-forced steps from empty caches of {LONG_INT8['max_len']} on (2, 1): logits "
+        f"{r['logits_max_abs_err']:.3g} from one rank's int8 chain (bar {LONG_INT8['tol']}); "
+        f"launches {r['launches']}")
     c = res[0]["c"]
     for arch, r in c.items():
         check(all(x["c"][arch]["finite"] for x in res),
@@ -3530,6 +3931,7 @@ def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
         return 2
+    t_main = time.perf_counter()
     sys.path.insert(0, str(SRC))
     import torch
 
@@ -3547,6 +3949,7 @@ def main() -> int:
     )
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     log(f"nvidia-smi: {smi.stdout.strip().splitlines()[0]}")
+    numpy_tile = start_numpy_whole_tile()  # phase 3b's numpy path, beside every phase
 
     from repro_torch.kernels import _build
 
@@ -3585,17 +3988,26 @@ def main() -> int:
         f"{MP_WORKERS} worker processes with one gpu lane each, SocketBus")
     procs = phase_processes(tiles[:MP_TILES], runs[True]["feats"])
     log_processes(procs, runs[True])
+    # With push off (direct pulls from the sibling) the crossing is held
+    # on the CPU only: a second run here would cost 65-95 s of 1200.
+    log("phase 6b: phase 6 with locality off, predictive push True: regions cross "
+        "worker to worker")
+    log_processes(phase_processes(tiles[:MP_TILES], runs[True]["feats"], locality=False,
+                                  label="phase 6b"), runs[True], procs)
     log("phase 3: 256x256 tile, card vs numpy")
     phase_parity()
     log(f"phase 8: hybrid node, {HYBRID_TILES} tiles of {HYBRID_SIZE}x{HYBRID_SIZE}, "
         f"runs {HYBRID_RUNS}")
     hybrid = phase_hybrid()
+    tile0 = tiles[0]  # phase 3b's, last: its numpy path runs beside every phase
     del tiles
     gc.collect()
     log(f"phase 4: serving {SERVE['arch']} at full width: {SERVE}")
     served = phase_serving()
     log("phase 5: zamba2-1.2B, 8 layers at full width, card vs CPU")
     phase_card_vs_cpu()
+    log(f"phase 5b: the dry run's bytes against the card: {DRYRUN_STEP}")
+    phase_dryrun_bytes()
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 7: training {TRAIN['arch']} at full width: {TRAIN}")
@@ -3604,6 +4016,8 @@ def main() -> int:
     phase_train_card_vs_cpu()
     log("phase 7c: smoke zamba2, checkpoint, resume")
     phase_train_resume()
+    log(f"phase 7d: smoke zamba2, bf16 loss curve, card vs CPU: {BF16_CURVE}")
+    phase_train_bf16_curve()
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 9: the other families at the published widths: {FAMILIES}; {XLSTM_SERVE}; "
@@ -3617,8 +4031,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 11: long-context decode and serving on a mesh, ranks that share this card: "
-        f"(a) {LONG}, (b) {LONG_SMALL}, (c) {MESH_FAMILIES} {MESH_SERVE}")
+        f"(a) {LONG}, (b) {LONG_SMALL} and {LONG_INT8}, (c) {MESH_FAMILIES} {MESH_SERVE}")
     long_ctx = phase_long_context()
+    log(f"phase 3b: phase 2's tile 0, {TILE}x{TILE}, card vs numpy")
+    phase_whole_tile(tile0, numpy_tile)
+    log(f"whole run: {time.perf_counter() - t_main:.1f} s")
 
     records = []
     family_keys = [key for shapes in (*family_shapes(), *rank_shapes(), *long_shapes()[:2])
@@ -3642,7 +4059,7 @@ def main() -> int:
             bound_ms=res["bound_ms"], bound_by=res["bound_by"],
             library_ms=res.get("library_ms"),
             **{k: v for k, v in res.items()
-               if k in ("inputs", "gqa_d128", "gqa_long", "plan", "shape", "build",
+               if k in ("inputs", "gqa_d128", "gqa_long", "plan", "shape", "build", "float32",
                         *DECODE_SHAPES, *family_keys,
                         "ms_clean_l2", "device_ms", "kernels_per_call", "copy_device_ms",
                         "fused_op_vs_cpu", "bytes_yardstick_ms")},

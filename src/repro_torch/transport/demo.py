@@ -30,6 +30,7 @@ from ..core.workflow import (
 __all__ = [
     "demo_registry",
     "demo_slow_registry",
+    "busy_registry",
     "dataplane_registry",
     "fanin_registry",
     "demo_workflow",
@@ -92,6 +93,31 @@ def demo_slow_registry() -> VariantRegistry:
     leases still in flight when the worker process is killed."""
     reg = VariantRegistry()
     reg.register("produce", "cpu", _produce_slow)
+    reg.register("consume", "cpu", _consume)
+    return reg
+
+
+#: ``busy_registry``'s produce runs torch calls this long: past a
+#: stopping worker's wait for its lanes (``WorkerRuntime.stop``, 5 s).
+_BUSY_S = 10.0
+
+
+def _produce_busy(ctx) -> torch.Tensor:
+    import time
+
+    x = _full(_SIDE, 1.0)
+    end = time.monotonic() + _BUSY_S
+    while time.monotonic() < end:
+        torch.mm(x, x)  # releases the GIL, as a CUDA launch or copy does
+    return _produce(ctx)
+
+
+def busy_registry() -> VariantRegistry:
+    """Same pipeline, produce inside torch calls for ``_BUSY_S``
+    seconds: a worker stopped meanwhile must wait for its lane before
+    its interpreter finalizes."""
+    reg = VariantRegistry()
+    reg.register("produce", "cpu", _produce_busy)
     reg.register("consume", "cpu", _consume)
     return reg
 

@@ -1046,6 +1046,13 @@ def worker_main(address: str, spec: WorkerSpec) -> None:
         runtime.stop()
         client.close()
         bus.close()
+        # A thread still inside a torch call when the interpreter
+        # finalizes is ended as it re-takes the GIL, within C++ that
+        # cannot unwind, and the process aborts: outlast every thread.
+        deadline = time.monotonic() + 30.0
+        for thread in threading.enumerate():
+            if thread is not threading.current_thread():
+                thread.join(timeout=max(0.0, deadline - time.monotonic()))
 
 
 def spawn_worker(address: str, spec: WorkerSpec):

@@ -433,10 +433,20 @@ class SocketBus(MessageBus):
     def close(self) -> None:
         self._closed = True
         if self._listener is not None:
+            # On Linux, close() alone does not wake a thread blocked in
+            # accept(), and that thread's loop holds the handlers (a
+            # ManagerEndpoint and its Manager, with every stage output):
+            # shutdown() makes accept() fail, so the loop returns.
+            try:
+                self._listener.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
             try:
                 self._listener.close()
             except OSError:
                 pass
+            if self._accept_thread not in (None, threading.current_thread()):
+                self._accept_thread.join(timeout=5.0)
         with self._lock:
             peers = list(self._peers)
         for peer in peers:

@@ -1,7 +1,8 @@
 """The port stands alone: no module under ``src/repro_torch`` (nor
 ``chip_smoke.py``, the port's examples and its paper-figure bench)
 imports JAX or the JAX package, the copied runtime
-modules are byte-identical to their originals, and the entry points
+modules are byte-identical to their originals (but for the repairs in
+``REPAIRED``), and the entry points
 that default to the card raise where there is none."""
 
 import ast
@@ -88,9 +89,42 @@ def test_import_with_jax_blocked():
     assert out.stdout.strip() == "ok"
 
 
+#: Copies that carry a repair the reference lacks: the port's file is the
+#: reference's with exactly this text added, once.
+REPAIRED = {
+    # ``SocketBus.close`` wakes the accept thread that holds the handlers.
+    "transport/socketbus.py": (
+        "            # On Linux, close() alone does not wake a thread blocked in\n"
+        "            # accept(), and that thread's loop holds the handlers (a\n"
+        "            # ManagerEndpoint and its Manager, with every stage output):\n"
+        "            # shutdown() makes accept() fail, so the loop returns.\n"
+        "            try:\n"
+        "                self._listener.shutdown(socket.SHUT_RDWR)\n"
+        "            except OSError:\n"
+        "                pass\n",
+        "            if self._accept_thread not in (None, threading.current_thread()):\n"
+        "                self._accept_thread.join(timeout=5.0)\n",
+    ),
+    # ``worker_main`` outlasts its threads before the interpreter finalizes.
+    "transport/endpoint.py": (
+        "        # A thread still inside a torch call when the interpreter\n"
+        "        # finalizes is ended as it re-takes the GIL, within C++ that\n"
+        "        # cannot unwind, and the process aborts: outlast every thread.\n"
+        "        deadline = time.monotonic() + 30.0\n"
+        "        for thread in threading.enumerate():\n"
+        "            if thread is not threading.current_thread():\n"
+        "                thread.join(timeout=max(0.0, deadline - time.monotonic()))\n",
+    ),
+}
+
+
 @pytest.mark.parametrize("rel", COPIED)
 def test_runtime_copy_is_byte_identical(rel):
-    assert (PORT / rel).read_bytes() == (REF / rel).read_bytes(), rel
+    port = (PORT / rel).read_text()
+    for added in REPAIRED.get(rel, ()):
+        assert port.count(added) == 1, (rel, added)
+        port = port.replace(added, "")
+    assert port == (REF / rel).read_text(), rel
 
 
 def test_card_entry_points_raise_without_a_card():

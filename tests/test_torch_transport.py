@@ -7,10 +7,12 @@ against the JAX package's ``run_tile(tile, "cpu")``."""
 
 from __future__ import annotations
 
+import gc
 import json
 import pickle
 import threading
 import time
+import weakref
 
 import numpy as np
 import pytest
@@ -316,6 +318,30 @@ def test_socketbus_segments_large_tensor_payloads():
     client.close()
 
 
+def test_closing_a_served_socketbus_frees_its_handlers():
+    """``ManagerEndpoint.close`` ends the bus's accept thread, so the
+    endpoint and its Manager (with every stage output it holds) can be
+    freed: on Linux, closing the listening socket alone does not wake a
+    thread blocked in ``accept``, whose loop holds the handlers."""
+    mgr = Manager(demo_concrete(1), ManagerConfig(window=1))
+    endpoint = T.ManagerEndpoint(mgr, T.SocketBus())
+    accept = endpoint.bus._accept_thread  # noqa: SLF001
+    alive = weakref.ref(mgr)
+    client = T.SocketBus()
+    client.connect(endpoint.address)
+    time.sleep(0.2)  # the accept loop is back in ``accept``
+    endpoint.close()
+    client.close()
+    accept.join(timeout=5.0)
+    assert not accept.is_alive()
+    del mgr, endpoint
+    deadline = time.monotonic() + 5.0  # the connection's own threads end soon after
+    while alive() is not None and time.monotonic() < deadline:
+        gc.collect()
+        time.sleep(0.05)
+    assert alive() is None
+
+
 # --------------------------------------------------------------------------
 # Manager/Worker over the bus, one process
 # --------------------------------------------------------------------------
@@ -473,27 +499,62 @@ def test_two_worker_processes_move_tensors_directly():
     assert codes == [0, 0]
 
 
+def test_worker_process_stopped_inside_torch_calls_exits_cleanly():
+    """A worker stopped while its lane is still inside torch calls, past
+    ``WorkerRuntime.stop``'s wait for its lanes, exits 0: it outlasts its
+    threads, since a thread that re-takes the GIL inside torch's C++
+    while the interpreter finalizes aborts the process ("terminate
+    called without an active exception", exit code -6)."""
+    mgr = Manager(demo_concrete(1), ManagerConfig(window=1, backup_tasks=False,
+                                                  heartbeat_timeout=120.0))
+    endpoint = T.ManagerEndpoint(mgr, T.SocketBus())
+    procs = _spawn(endpoint, "repro_torch.transport.demo:busy_registry", 1)
+    codes = None
+    try:
+        assert endpoint.wait_workers(1, timeout=60.0)
+        assert not mgr.run(timeout=2.0)  # produce is still in its torch calls
+    finally:
+        codes = _close(endpoint, procs)
+    assert codes == [0]
+
+
 WSI_SIZE, WSI_TILES = 128, 4
 
 
-@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
-def test_wsi_pipeline_across_two_worker_processes(fused, tmp_path, monkeypatch):
+#: (fused, locality, predictive push). With locality on, each tile's
+#: features stage lands on the worker holding its segmentation and
+#: nothing crosses; with it off (the Manager's leases and the workers'
+#: PATS), the features stage may run on the other worker, and the
+#: segmentation region is pushed to it or pulled from its sibling.
+WSI_CASES = {
+    "unfused": (False, True, True),
+    "fused": (True, True, True),
+    "fused-crossing-push": (True, False, True),
+    "fused-crossing-pull": (True, False, False),
+}
+
+
+@pytest.mark.parametrize("fused,locality,push", list(WSI_CASES.values()), ids=list(WSI_CASES))
+def test_wsi_pipeline_across_two_worker_processes(fused, locality, push, tmp_path,
+                                                  monkeypatch):
     """The Manager here, two spawned workers with one ``gpu`` lane each
-    (``wsi_registry_cpu``: the torch ops on the CPU), PATS and locality,
-    predictive push: every tile's features equal the JAX package's
-    numpy path, no CRC rejects, both children exit 0 and report their
-    (zero) kernel launches."""
+    (``wsi_registry_cpu``: the torch ops on the CPU), PATS: every tile's
+    features equal the JAX package's numpy path, no CRC rejects, both
+    children exit 0 and report their (zero) kernel launches. With
+    locality off, regions cross worker to worker (pushed, or pulled from
+    the sibling without push) and none is relayed by the Manager."""
     monkeypatch.setenv(LAUNCH_LOG_ENV, str(tmp_path))
     tiles = [synth_tile(i, size=WSI_SIZE, seed=3) for i in range(WSI_TILES)]
     cw = ConcreteWorkflow.replicate(
         build_workflow(fused=fused),
         [DataChunk(i, payload=t) for i, t in enumerate(tiles)],
     )
-    mgr = Manager(cw, ManagerConfig(window=2, heartbeat_timeout=60.0, locality_aware=True,
-                                    predictive_push=True, backup_tasks=False))
+    mgr = Manager(cw, ManagerConfig(window=2, heartbeat_timeout=60.0,
+                                    locality_aware=locality, predictive_push=push,
+                                    backup_tasks=False))
     endpoint = T.ManagerEndpoint(mgr, T.SocketBus())
     procs = _spawn(endpoint, "repro_torch.app.pipeline:wsi_registry_cpu", 2,
-                   lanes=(("gpu", 0),), policy="pats", extra={"locality": True})
+                   lanes=(("gpu", 0),), policy="pats", extra={"locality": locality})
     codes = None
     try:
         assert endpoint.wait_workers(2, timeout=60.0)
@@ -527,6 +588,13 @@ def test_wsi_pipeline_across_two_worker_processes(fused, tmp_path, monkeypatch):
         assert sum(s["profile"].get(feature_op, {}).get("gpu", 0)
                    for s in stats) == WSI_TILES
         assert endpoint.bus.codec.decoded_bytes > 0
+        if not locality:
+            assert endpoint.relay_bytes == 0
+            if push:
+                assert sum(s["push_ingested"] for s in stats) > 0
+            else:
+                assert sum(s["prefetch"].get("direct_keys", 0) for s in stats) > 0
+                assert sum(s["transport"]["served_regions"] for s in stats) > 0
     finally:
         codes = _close(endpoint, procs)
     assert codes == [0, 0]
