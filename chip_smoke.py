@@ -9,7 +9,9 @@ name and power limit, then builds every kernel from ``csrc/*.cu`` (one
 each kernel's registers and spills from ``ptxas``, and counts the
 tensor-core instructions (``HMMA``/``HGMMA``, from ``cuobjdump -sass``)
 of the bfloat16 flash_attention kernels for each head dim (forward,
-backward dQ and dK/dV): it fails if one spills or has none; and fails
+backward dQ and dK/dV): it fails if one spills or has none; the float32
+forward's TF32 ``HMMA`` (three passes of each product): it fails if one
+spills or its count is not a whole number of three-pass tiles; and fails
 if an instantiation of the mamba2_chunk_scan backward spills.
 
 Phase 1, kernels: each hand-written kernel against its plain PyTorch
@@ -30,10 +32,13 @@ one tile's ops hand it (captured from ``ops.morph_recon``), each
 bit-identical to the plain version in one launch, with the rounds, tile
 visits and in-tile sweeps the kernel counts; flash_attention at
 B=4, H=32, S=1024, D=64, bf16, causal (the zamba2-1.2B serving prefill),
-plus a ragged S=1000 and a float32 case, and timed at B=1, H=32, Hkv=8,
+plus a ragged S=1000 and float32 cases (D 32, 64, 128, GQA,
+non-causal; out and lse at 2e-5), and timed at B=1, H=32, Hkv=8,
 S=1024, D=128, bf16, causal (the dense models' GQA shape; SDPA with
-``enable_gqa``); decode_attention checked on a float32 GQA case (Hq=8,
-Hkv=2), then at B=4, Hq=Hkv=32, S=2048, D=64, bf16, lengths [2048,
+``enable_gqa``), and at every shape the families and ranks launch
+(float32 rows bounded by three TF32 passes, with SDPA's error against
+the plain version and its backend); decode_attention checked on a
+float32 GQA case (Hq=8, Hkv=2), then at B=4, Hq=Hkv=32, S=2048, D=64, bf16, lengths [2048,
 1025, 700, 1] (zamba2's decode) and at B=4, Hq=32, Hkv=8, S=16384,
 D=128, bf16, lengths [16384, 9000, 4097, 1] (the dense models'
 long-context GQA decode), one launch per call at each, with the split
@@ -269,7 +274,12 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS = 67e12           # H100 SXM, float32 outside the tensor cores
+TF32_FLOPS = 494.7e12       # H100 SXM, dense TF32 on the tensor cores
 BF16_FLOPS = 989e12         # H100 SXM, dense bf16 on the tensor cores
+#: Tensor-core passes of a float32 product: the float32 attention kernels'
+#: bound is this many products at TF32_FLOPS (three-pass TF32: hi*hi,
+#: hi*lo, lo*hi), not one at F32_FLOPS.
+F32_PASSES = 3
 REPLACES = {
     "color_deconv": "src/repro/kernels/color_deconv.py:48",
     "morph_recon": "src/repro/kernels/morph_recon.py:82",
@@ -389,9 +399,10 @@ def ptxas_entries(text: str) -> dict:
     return out
 
 
-def hmma_counts(lib: Path) -> dict:
-    """``{function name: number of tensor-core instructions (HMMA, HGMMA)}``
-    of a built library, from ``cuobjdump -sass`` beside ``nvcc``."""
+def hmma_counts(lib: Path, pattern: str = r"\bH(G)?MMA\b") -> dict:
+    """``{function name: number of tensor-core instructions (HMMA, HGMMA;
+    or those matching ``pattern``)}`` of a built library, from
+    ``cuobjdump -sass`` beside ``nvcc``."""
     from repro_torch.kernels import _build
 
     tool = Path(_build.nvcc_path()).parent / "cuobjdump"
@@ -405,7 +416,7 @@ def hmma_counts(lib: Path) -> dict:
         if m:
             name = m.group(1)
             out[name] = 0
-        elif name is not None and re.search(r"\bH(G)?MMA\b", line):
+        elif name is not None and re.search(pattern, line):
             out[name] += 1
     return out
 
@@ -417,8 +428,13 @@ def flash_build_report(ptxas: dict) -> dict:
     training one (``d32_lse`` ...), and the backward's dQ and dK/dV
     kernels (``bwd_dq_d32`` ...; dK/dV in its group-of-1 and its partial
     instantiation, ``bwd_dkdv_d32`` and ``bwd_dkdv_d32_partial``);
-    registers and spills of the float32 backward (``bwd_f32``). Fails on a
-    spill of a bf16 kernel or on one with no tensor-core instruction."""
+    registers, spills and TF32 ``HMMA`` count of the float32 forward
+    (``f32_d32`` ..., ``f32_d32_lse`` ...); registers and spills of the
+    float32 backward (``bwd_f32``). Fails on a spill of a bf16 kernel or
+    of the float32 forward, on a bf16 kernel with no tensor-core
+    instruction, on a float32 forward whose TF32 ``HMMA`` count is not a
+    whole number of three-pass tiles, or if the CUDA-core float32
+    forward is still built."""
     from repro_torch.kernels import _build
 
     entries = ptxas_entries(ptxas["flash_attention"])
@@ -445,6 +461,27 @@ def flash_build_report(ptxas: dict) -> dict:
         check(mma[0] > 0, f"{what} has no HMMA/HGMMA instruction")
         check(found[0].get("spill_stores") == 0 and found[0].get("spill_loads") == 0,
               f"{what} spills: {found[0]}")
+    # The float32 forward: three-pass TF32 on mma.sync, 6 (D / 8)(BK / 8)
+    # TF32 HMMA a tile (QK^T and PV, three products each) in SASS.
+    tf32 = hmma_counts(_build._target("flash_attention"), r"\bHMMA\.1688\.F32\.TF32\b")
+    for d, bk in ((32, 64), (64, 64), (128, 32)):
+        for lse, suffix in ((0, ""), (1, "_lse")):
+            what = f"float32 flash kernel D={d}{suffix}"
+            key = re.compile(rf"flash_f32_kernelILi{d}ELi\d+ELb{lse}E")
+            found = [v for n, v in entries.items() if key.search(n)]
+            mma = [c for n, c in tf32.items() if key.search(n)]
+            check(len(found) == 1 and len(mma) == 1,
+                  f"{what}: {len(found)} ptxas entries, {len(mma)} SASS functions")
+            per_tile = 6 * (d // 8) * (bk // 8)
+            check(mma[0] > 0 and mma[0] % per_tile == 0,
+                  f"{what}: {mma[0]} TF32 HMMA, not a multiple of {per_tile} (3 passes of "
+                  f"QK^T and PV over a {bk}-key tile)")
+            check(found[0].get("spill_stores") == 0 and found[0].get("spill_loads") == 0,
+                  f"{what} spills: {found[0]}")
+            report[f"f32_d{d}{suffix}"] = dict(found[0], hmma_tf32=mma[0],
+                                               hmma_tf32_per_tile=per_tile)
+    check(not any("flash_fwd_kernel" in n for n in sass),
+          "the CUDA-core float32 forward (flash_fwd_kernel) is still built")
     report["bwd_f32"] = {re.search(r"(flash_bwd_\w+?_kernel)I(\w+?)(Li\d+E)?E", n).expand(
         r"\1<\2\3>"): v for n, v in entries.items()
         if "flash_bwd_" in n and "_tc_" not in n and "_sum_" not in n}
@@ -530,6 +567,14 @@ def bound(nbytes: float, flops: float, peak: float = F32_FLOPS) -> tuple[float, 
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_f = flops / peak * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def attention_bound(nbytes: float, flops: float, f32: bool) -> tuple[float, str]:
+    """``bound`` of an attention kernel: bf16 products at BF16_FLOPS,
+    float32 ones as F32_PASSES TF32 products at TF32_FLOPS."""
+    if f32:
+        return bound(nbytes, F32_PASSES * flops, TF32_FLOPS)
+    return bound(nbytes, flops, BF16_FLOPS)
 
 
 def recon_inputs(tile) -> dict:
@@ -751,6 +796,20 @@ def device_kernels_per_call(fn, n: int = 3, tries: int = 3) -> float:
     fn()
     torch.cuda.synchronize()
     return max(len(device_events(calls)) for _ in range(tries)) / n
+
+
+def sdpa_backend(fn) -> str:
+    """Which backend of ``scaled_dot_product_attention`` ran ``fn``, read
+    from the names of the device kernels it launched: ``flash``,
+    ``cudnn``, ``efficient`` (the CUTLASS ``fmha`` kernels) or ``math``
+    (plain products and a softmax). Three calls, so that a record the
+    profiler drops does not hide the backend."""
+    names = " ".join(name for name, _ in device_events(lambda: [fn() for _ in range(3)]))
+    names = names.lower()
+    for key, backend in (("flash", "flash"), ("cudnn", "cudnn"), ("fmha", "efficient")):
+        if key in names:
+            return backend
+    return "math"
 
 
 def stencil_records(flush, rgb=None, gray=None) -> dict:
@@ -1080,11 +1139,15 @@ def long_shapes() -> tuple[dict, dict, frozenset]:
 def flash_family_records(flush, gpu, normal, bf16_tol, shapes: dict) -> dict:
     """flash_attention at ``shapes`` (B, H, Hkv, S, D, causal[, dtype]),
     bfloat16 unless given, against the plain version at the serving
-    forward's bar (float32: phase 1's 2e-5, summation order only), timed
-    beside it and beside ``scaled_dot_product_attention``
-    (``enable_gqa``). The bound counts q, k, v and out once, and the
-    products of the unmasked scores (a causal row of S keys attends to
-    (S + 1) / 2 of them)."""
+    forward's bar (float32: phase 1's 2e-5 for out, and for out and lse
+    of the instantiation with the log-sum-exp), timed beside it and beside
+    ``scaled_dot_product_attention`` (``enable_gqa``). The bound counts q,
+    k, v and out once, and the products of the unmasked scores (a causal
+    row of S keys attends to (S + 1) / 2 of them): bf16 at BF16_FLOPS,
+    float32 three passes at TF32_FLOPS (``bound_ms_cuda_cores``: one at
+    F32_FLOPS). A float32 row also has SDPA's max abs error against the
+    plain version, the backend that ran it (from its kernels' names) and
+    whether it holds the float32 bar of 2e-5."""
     import torch
     import torch.nn.functional as F
 
@@ -1097,22 +1160,42 @@ def flash_family_records(flush, gpu, normal, bf16_tol, shapes: dict) -> dict:
         f32 = dt == torch.float32
         q = gpu(normal(b, h, s, d), dt)
         k, v = (gpu(normal(b, hkv, s, d), dt) for _ in range(2))
-        want = ref.flash_attention_ref(q, k, v, causal)
+        want, want_lse = ref.flash_attention_fwd_ref(q, k, v, causal)
         err = max_err(FA.flash_attention_cuda(q, k, v, causal), want,
                       *((2e-5, 2e-5) if f32 else bf16_tol), f"flash_attention {key}")
+        extra = {}
+        if f32:  # the lse instantiation, which training runs
+            got, lse = FA.flash_attention_cuda(q, k, v, causal, return_lse=True)
+            err = max(err, max_err(got, want, 2e-5, 2e-5, f"flash_attention {key} (lse)"))
+            extra["lse_max_abs_err"] = max_err(lse, want_lse, 2e-5, 2e-5,
+                                               f"flash_attention {key} lse")
+            del got, lse
+        del want_lse
         sdpa = lambda q=q, k=k, v=v, c=causal: F.scaled_dot_product_attention(  # noqa: E731
             q, k, v, is_causal=c, enable_gqa=True)
-        max_err(sdpa(), want, *bf16_tol, f"sdpa {key} (yardstick)")
-        del want
+        lib = sdpa()
+        max_err(lib, want, *bf16_tol, f"sdpa {key} (yardstick)")
+        if f32:
+            gap = (lib - want).abs()
+            within = bool((gap <= 2e-5 + 2e-5 * want.abs()).all())
+            extra.update(library_max_abs_err=float(gap.max()), library_backend=sdpa_backend(sdpa),
+                         library_within_f32_bar=within)
+            if not within:
+                extra["library_note"] = ("SDPA misses the float32 bar of 2e-5 against the plain "
+                                         "version: not a like-for-like yardstick")
+            del gap
+        del want, lib
         pairs = b * h * s * ((s + 1) / 2 if causal else s)
-        bms, by = bound(2 * (b * h + b * hkv) * s * d * q.element_size(), 4.0 * pairs * d,
-                        F32_FLOPS if f32 else BF16_FLOPS)
+        nbytes = 2 * (b * h + b * hkv) * s * d * q.element_size()
+        bms, by = attention_bound(nbytes, 4.0 * pairs * d, f32)
+        if f32:
+            extra["bound_ms_cuda_cores"] = bound(nbytes, 4.0 * pairs * d, F32_FLOPS)[0]
         call = lambda q=q, k=k, v=v, c=causal: FA.flash_attention_cuda(q, k, v, c)  # noqa: E731
         out[key] = dict(
             shape=[b, h, hkv, s, d], causal=causal, dtype=str(dt).removeprefix("torch."),
             max_abs_err=err, ms=time_ms(call, 20, flush),
             plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, causal), 3, flush),
-            bound_ms=bms, bound_by=by, library_ms=time_ms(sdpa, 20, flush))
+            bound_ms=bms, bound_by=by, library_ms=time_ms(sdpa, 20, flush), **extra)
         log(f"  flash_attention {key} B={b} H={h} Hkv={hkv} S={s} D={d}: "
             + ", ".join(f"{n}={x:.4g}" if isinstance(x, float) else f"{n}={x}"
                         for n, x in out[key].items()))
@@ -1156,14 +1239,26 @@ def phase_lm_kernels() -> dict:
     check(results["sobel_stats"]["kernels_per_call"] == 1,
           f"sobel_stats: {results['sobel_stats']['kernels_per_call']} device kernels per call")
 
-    # flash_attention: ragged S and float32 checks, then the prefill shape.
-    for (b, h, hkv, s, dt, tol) in ((2, 8, 2, 1000, torch.bfloat16, bf16_tol),
-                                    (2, 8, 8, 1000, torch.float32, (2e-5, 2e-5)),
-                                    (1, 4, 4, 257, torch.float32, (2e-5, 2e-5))):
-        q, k, v = (gpu(normal(*sh), dt) for sh in ((b, h, s, 64), (b, hkv, s, 64), (b, hkv, s, 64)))
-        e = max_err(FA.flash_attention_cuda(q, k, v, True), ref.flash_attention_ref(q, k, v, True),
-                    *tol, f"flash_attention S={s} {dt} Hkv={hkv}")
-        log(f"  flash_attention B={b} H={h} Hkv={hkv} S={s} {dt}: max abs err {e:.3g}")
+    # flash_attention: ragged S and float32 checks (every head dim, GQA,
+    # non-causal; float32 also with its lse), then the prefill shape.
+    f32_tol = (2e-5, 2e-5)
+    for (b, h, hkv, s, d, causal, dt, tol) in (
+            (2, 8, 2, 1000, 64, True, torch.bfloat16, bf16_tol),
+            (2, 8, 8, 1000, 64, True, torch.float32, f32_tol),
+            (1, 4, 4, 257, 64, True, torch.float32, f32_tol),
+            (2, 8, 2, 1000, 64, False, torch.float32, f32_tol),
+            (2, 4, 4, 77, 32, True, torch.float32, f32_tol),
+            (1, 8, 2, 300, 128, True, torch.float32, f32_tol),
+            (1, 4, 1, 129, 128, False, torch.float32, f32_tol)):
+        q, k, v = (gpu(normal(*sh), dt) for sh in ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+        what = f"flash_attention S={s} D={d} {dt} Hkv={hkv} causal={causal}"
+        want, want_lse = ref.flash_attention_fwd_ref(q, k, v, causal)
+        e = max_err(FA.flash_attention_cuda(q, k, v, causal), want, *tol, what)
+        if dt == torch.float32:
+            got, lse = FA.flash_attention_cuda(q, k, v, causal, return_lse=True)
+            e = max(e, max_err(got, want, *tol, what + " (lse)"),
+                    max_err(lse, want_lse, *tol, what + " lse"))
+        log(f"  {what}: max abs err {e:.3g}")
     b, h, s, d = 4, 32, 1024, 64
     q, k, v = (gpu(normal(b, h, s, d), torch.bfloat16) for _ in range(3))
     err = max_err(FA.flash_attention_cuda(q, k, v, True), ref.flash_attention_ref(q, k, v, True),
@@ -1897,8 +1992,7 @@ def phase_backward_kernels() -> dict:
         elems, kv_elems, tri = b * h * s * d, b * hkv * s * d, b * h * s * (s + 1) / 2
         # q, o, dout, dq (B, H, S, D), k, v, dk, dv (B, Hkv, S, D) and lse, once
         nbytes = args[0].element_size() * (4 * elems + 4 * kv_elems) + 4 * b * h * s
-        bms, by = bound(nbytes, 5 * 2.0 * tri * d,
-                        F32_FLOPS if dt == torch.float32 else BF16_FLOPS)
+        bms, by = attention_bound(nbytes, 5 * 2.0 * tri * d, dt == torch.float32)
         return dict(shape=[b, h, hkv, s, d], max_abs_err=err, kernels_per_call=per_call,
                     ms=time_ms(fn, 10, flush),
                     plain_ms=time_ms(lambda: ref.flash_attention_bwd_ref(*args), 3, flush),

@@ -56,12 +56,57 @@
 //   diagonal, and the grid runs the heaviest q blocks of every head
 //   first. GQA by index arithmetic (h / group): no repeated K/V.
 //
-// float32 (`flash_fwd_kernel`, for float32 callers): the CUDA-core
-// kernel that served both types before the bf16 path moved to the tensor
-// cores, unchanged. One block of 256 threads per q block of 64 rows; Q
-// and 64-key K/V tiles staged in shared memory as float32 (K transposed,
-// rows padded), 4x4 scores and 4 x D/16 outputs per thread, scalar FMAs.
-// It is held to the float32 rate (67 TFLOP/s).
+// float32 (`flash_f32_kernel`, for float32 callers): three-pass TF32 on
+// the tensor cores, at float32 accuracy.
+// - Each float32 operand a is split into hi = tf32(a) and lo = tf32(a -
+//   hi), tf32() rounding to nearest with ties away from zero as
+//   `cvt.rna.tf32.f32` does (add 0x1000 to the bits, clear the low 13).
+//   Each product is lo*hi + hi*lo + hi*hi on `mma.sync.m16n8k8` (tf32 in,
+//   float32 accumulate; the small terms first): three products for each
+//   tile pair. The dropped lo*lo is under 2^-22 of a*b, so the products
+//   are off by about what float32 rounding gives; one pass of TF32 (2^-11
+//   of each operand) misses the float32 bar of 2e-5 by far
+//   (tests/test_torch_flash_f32_numerics.py models both).
+// - Short accumulation chains: the tensor cores truncate each sum into an
+//   accumulator instead of rounding it to nearest. In Q K^T the small
+//   terms go to an accumulator of their own, added to hi*hi's at the end
+//   (one truncated sum a k8 step for the large one, not three); P V of a
+//   tile is summed from zero and added to the output as acc * alpha +
+//   tile, one float32 FMA, so the chains do not grow with S. With all
+//   three passes and every tile in one accumulator, the error against
+//   exact attention at 5,120 keys was 7x the plain version's on an H100.
+// - The bf16 kernel's structure: 4 warps of 16 query rows, K/V tiles in
+//   a two-stage cp.async ring (rows past S zero-filled by the source
+//   size), the online softmax in registers with ex2.approx and scale *
+//   log2(e) folded, masks only on the diagonal and ragged tiles (a warp
+//   skips a tile wholly above its rows), the heaviest causal q blocks
+//   first, GQA by h / group.
+// - Q and K tiles are rows of D floats, 16-byte chunk ch of row r stored
+//   at ch ^ (r mod 8). `ldmatrix` (.b16, not transposed) of rows of 16
+//   bytes hands lane 4g + t the 32-bit element (row g, col t): the tf32 A
+//   fragment of Q and the B fragment of K^T, d along the row.
+// - P stays float32 in registers and is split like the inputs. The C
+//   layout of m16n8 (cols 2t, 2t + 1) is not the A layout of m16n8k8
+//   (cols t, t + 4); the sum over keys takes any key order, so k index t
+//   of each 8-key step stands for key 2t and t + 4 for key 2t + 1: P's
+//   c0, c1, c2, c3 are a0, a2, a1, a3 with no shuffle, and V's B fragment
+//   reads keys 2t and 2t + 1. `ldmatrix.trans` is 16-bit only, so V is
+//   read by 32-bit shared loads from rows padded to D + 4 floats: the 32
+//   lanes (key 2t or 2t + 1, column g) hit 32 banks.
+// - Where the splits happen: K and V fragments are split by each warp as
+//   it reads them; Q is split once into registers (hi and lo) at D <= 64,
+//   and at D = 128 read from its shared tile by ldmatrix and split at each
+//   use (`q_in_registers`: hi and lo would take 128 registers a thread;
+//   raw fragments held in registers measured 10% slower). P V runs k8
+//   steps outer, into D / 8 independent tile accumulators.
+// - Tiles and occupancy: 64 keys a tile (D = 128: 32, so that the ring
+//   fits two blocks an SM); shared memory 42, 82, 97 KB at D = 32, 64,
+//   128: 3, 2, 2 blocks (12, 8, 8 warps) an SM. The row sums add the
+//   unsplit float32 P, per thread, reduced across the quad at the end.
+// - Bound: the three passes at dense TF32's 494.7 TFLOP/s (H100 SXM data
+//   sheet): 0.814 ms at 1x20x5120x128 causal, where 67 TFLOP/s of float32
+//   FMAs gave 2.004. The dynamic shared memory attribute is set once per
+//   instantiation and device, not at every call.
 //
 // Training: both forward kernels can also write the float32 log-sum-exp
 // of each row, lse[b, h, row] = log(sum_j exp(s_j * scale)), for the
@@ -120,189 +165,19 @@
 // on the tensor cores): operations bound it. The kernels do 7 (S and
 // dP in both), 60.2 GFLOP.
 
+#include <atomic>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int THREADS = 256;
 constexpr float NEG = -1.0e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-
-template <int D>
-struct Smem {
-  static constexpr int QS = D + 4;   // Q tile [row][d]
-  static constexpr int KS = BK + 4;  // K^T tile [d][key]
-  static constexpr int VS = D;       // V tile [key][d]
-  static constexpr int PS = BK + 4;  // P tile [row][key]
-  static constexpr int FLOATS = BQ * QS + D * KS + BK * VS + BQ * PS;
-  static constexpr int BYTES = FLOATS * 4;
-};
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-                 int H, int HKV, int S, float scale, int causal) {
-  using L = Smem<D>;
-  constexpr int DJ = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Kt = Qs + BQ * L::QS;
-  float* Vs = Kt + D * L::KS;
-  float* Ps = Vs + BK * L::VS;
-
-  const int qb = gridDim.x - 1 - blockIdx.x;  // heaviest (causal) first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (H / HKV);
-  const int q0 = qb * BQ;
-  const long long qoff = (static_cast<long long>(b) * H + h) * S * D;
-  const long long koff = (static_cast<long long>(b) * HKV + hk) * S * D;
-  const T* qp = q + qoff;
-  const T* kp = k + koff;
-  const T* vp = v + koff;
-  T* op = o + qoff;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, c = i % D;
-    Qs[r * L::QS + c] =
-        q0 + r < S ? to_f(qp[static_cast<long long>(q0 + r) * D + c]) : 0.f;
-  }
-
-  float acc[4][DJ];
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  }
-
-  const int kend = causal ? min(S, q0 + BQ) : S;
-  const int nkb = (kend + BK - 1) / BK;
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int k0 = kb * BK;
-    __syncthreads();  // the previous block's K/V/P are consumed
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int r = i / D, c = i % D;
-      const bool ok = k0 + r < S;
-      const long long g = static_cast<long long>(k0 + r) * D + c;
-      Kt[c * L::KS + r] = ok ? to_f(kp[g]) : 0.f;
-      Vs[r * L::VS + c] = ok ? to_f(vp[g]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * L::QS + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Kt[d * L::KS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      float mx = NEG;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        float val = s[i][j] * scale;
-        if (col >= S || (causal && col > row)) val = NEG;
-        s[i][j] = val;
-        mx = fmaxf(mx, val);
-      }
-      // The 16 threads of a row are 16 neighbouring lanes.
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        Ps[(ty * 4 + i) * L::PS + tx + 16 * j] = p;
-        psum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, off);
-      l[i] = alpha * l[i] + psum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pv[4], vv[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * L::PS + kk];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) vv[j] = Vs[kk * L::VS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= S) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      op[static_cast<long long>(row) * D + tx + 16 * j] = from_f<T>(acc[i][j] / den);
-    if (lse != nullptr && tx == 0)
-      lse[(static_cast<long long>(b) * H + h) * S + row] = m[i] + logf(den);
-  }
-}
-
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
-           int HKV, int S, float scale, int causal, void* stream) {
-  using L = Smem<D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T, D><<<grid, THREADS, L::BYTES, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, H, HKV, S, scale, causal);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-             int H, int HKV, int S, int D, float scale, int causal, void* stream) {
-  switch (D) {
-    case 32: return launch<T, 32>(q, k, v, o, lse, B, H, HKV, S, scale, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, o, lse, B, H, HKV, S, scale, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, lse, B, H, HKV, S, scale, causal, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bfloat16 on the tensor cores
@@ -631,6 +506,383 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, i
 }
 
 }  // namespace tc
+
+// ---------------------------------------------------------------------------
+// float32 forward on the tensor cores: three-pass TF32
+
+namespace f32 {
+
+using tc::cp_async16;
+using tc::cp_async_commit;
+using tc::cp_async_wait;
+using tc::ex2;
+using tc::ldsm_x4;
+using tc::LN2;
+using tc::smem_addr;
+
+constexpr int BQ = 64;  // query rows per block, 16 per warp
+constexpr int THREADS = 128;
+
+template <int D>
+__host__ __device__ constexpr int bk() {  // keys per K/V tile
+  return D == 128 ? 32 : 64;
+}
+template <int D>
+__host__ __device__ constexpr int vstride() {  // floats per row of a V tile
+  return D + 4;
+}
+// Whether a warp's Q fragments are split once into hi and lo held in
+// registers, or read from the shared Q tile by ldmatrix and split at each
+// use (D = 128: hi and lo would take 128 registers a thread).
+template <int D>
+__host__ __device__ constexpr bool q_in_registers() {
+  return D <= 64;
+}
+template <int D>
+__host__ __device__ constexpr int smem_bytes() {  // Q, and two stages of K and V
+  return (BQ * D + 2 * bk<D>() * D + 2 * bk<D>() * vstride<D>()) * 4;
+}
+
+// The bits of x rounded to TF32 as cvt.rna.tf32.f32 rounds: to nearest,
+// ties away from zero (half a TF32 ulp added to the magnitude, the low 13
+// bits cleared).
+__device__ __forceinline__ unsigned tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+// x (float32 bits) = hi + lo to about 2^-22 of x, both TF32.
+__device__ __forceinline__ void split(unsigned x, unsigned& hi, unsigned& lo) {
+  hi = tf32(__uint_as_float(x));
+  lo = tf32(__uint_as_float(x) - __uint_as_float(hi));
+}
+
+// Fragment layouts (PTX ISA, mma.m16n8k8 with .tf32): lane = 4 g + t.
+// A (16x8): a0 (row g, k t), a1 (row g+8, k t), a2 (row g, k t+4), a3
+// (row g+8, k t+4). B (8x8): b0 (k t, col g), b1 (k t+4, col g). C
+// (16x8): c0, c1 (row g, cols 2t, 2t+1), c2, c3 (row g+8, same cols).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// d += a b in three passes, the small terms first: lo*hi, hi*lo, hi*hi.
+__device__ __forceinline__ void mma3(float (&d)[4], const unsigned (&ah)[4],
+                                     const unsigned (&al)[4], unsigned bh0, unsigned bh1,
+                                     unsigned bl0, unsigned bl1) {
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+// big += ah bh and small += al bh + ah bl: the three passes into two
+// accumulators, so that the large one takes one truncated sum a k8 step,
+// not three.
+__device__ __forceinline__ void mma3_split(float (&big)[4], float (&small)[4],
+                                           const unsigned (&ah)[4], const unsigned (&al)[4],
+                                           unsigned bh0, unsigned bh1, unsigned bl0,
+                                           unsigned bl1) {
+  mma_tf32(small, al, bh0, bh1);
+  mma_tf32(small, ah, bl0, bl1);
+  mma_tf32(big, ah, bh0, bh1);
+}
+
+// Byte offset of the row that this lane addresses in an ldmatrix.x4 of a
+// tile of rows of D floats, chunk ch of row r stored at ch ^ (r mod 8)
+// (row r, chunk c of chunk pair 0). Chunk pair kk is (offset ^ (kk << 5)).
+template <int D>
+__device__ __forceinline__ unsigned ldsm_offset(int r, int c) {
+  return r * D * 4 + ((c ^ (r & 7)) << 4);
+}
+
+// ROWS rows of D floats from row `row` of `src` into a tile of row
+// stride STRIDE floats, by cp.async in 16-byte chunks (SWZ: chunk ch of
+// row r at ch ^ (r mod 8)); rows past S are zero-filled (source size 0,
+// nothing read).
+template <int ROWS, int D, int STRIDE, bool SWZ>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int row, int S, int tid) {
+  constexpr int CH = D / 4, STEP = THREADS / CH;
+  static_assert(THREADS % CH == 0 && ROWS % STEP == 0, "whole passes over the tile");
+  const int r = tid / CH, ch = tid % CH;
+#pragma unroll
+  for (int i = 0; i < ROWS / STEP; ++i) {
+    const int rr = r + i * STEP;
+    float* d = dst + rr * STRIDE + ((SWZ ? ch ^ (rr & 7) : ch) << 2);
+    const bool ok = row + rr < S;
+    cp_async16(d, ok ? src + static_cast<long long>(row + rr) * D + ch * 4 : src, ok ? 16 : 0);
+  }
+}
+
+// A warp's 16 rows of Q as the hi and lo A fragments of D / 8 k8 steps
+// (see q_in_registers).
+template <int D, bool REGS>
+struct QFrags {
+  unsigned hi[REGS ? D / 8 : 1][4], lo[REGS ? D / 8 : 1][4];
+  unsigned tile, off;  // the Q tile's shared address; this lane's ldsm_offset in it
+  __device__ __forceinline__ void load(unsigned q_tile, int warp, int lane) {
+    tile = q_tile;
+    off = warp * 16 * D * 4 + ldsm_offset<D>(lane & 15, lane >> 4);
+    if constexpr (REGS) {
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        ldsm_x4(hi[kk], tile + (off ^ (kk << 5)));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split(hi[kk][e], hi[kk][e], lo[kk][e]);
+      }
+    }
+  }
+  __device__ __forceinline__ void get(int kk, unsigned (&h)[4], unsigned (&l)[4]) const {
+    if constexpr (REGS) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        h[e] = hi[kk][e];
+        l[e] = lo[kk][e];
+      }
+    } else {
+      unsigned raw[4];
+      ldsm_x4(raw, tile + (off ^ (kk << 5)));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split(raw[e], h[e], l[e]);
+    }
+  }
+};
+
+// s (16 x BK) = the warp's 16 rows of Q times K^T: hi*hi summed apart from
+// the two small terms, which are added at the end. kt: the K tile's shared
+// address; klane: this lane's ldsm_offset in it.
+template <int D, int BK, bool REGS>
+__device__ __forceinline__ void qk(float (&s)[BK / 8][4], const QFrags<D, REGS>& qf,
+                                   unsigned kt, unsigned klane) {
+  float sl[BK / 8][4];
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = sl[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    unsigned ah[4], al[4];
+    qf.get(kk, ah, al);
+    const unsigned a = kt + (klane ^ (kk << 5));  // d chunks 2kk, 2kk + 1
+#pragma unroll
+    for (int p = 0; p < BK / 16; ++p) {
+      unsigned kf[4], bh[4], bl[4];  // b0, b1 of key tile 2p, then of 2p + 1
+      ldsm_x4(kf, a + p * 16 * D * 4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split(kf[e], bh[e], bl[e]);
+      mma3_split(s[2 * p], sl[2 * p], ah, al, bh[0], bh[1], bl[0], bl[1]);
+      mma3_split(s[2 * p + 1], sl[2 * p + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] += sl[j][e];
+}
+
+// Online softmax of the scores s of keys k0.. (masked where needed), then
+// acc = acc * alpha + P V, P V of the tile summed from zero and added with
+// one float32 FMA. vt: this lane's element (key 2t, column g) of the V
+// tile. l: this thread's partial row sums of rows g and g + 8 (its own
+// columns).
+template <int D, int BK>
+__device__ __forceinline__ void softmax_pv(float (&s)[BK / 8][4], float (&acc)[D / 8][4],
+                                           float (&m)[2], float (&l)[2], const float* vt,
+                                           int k0, int row0, int S, int causal,
+                                           float scale_log2, int lane) {
+  constexpr int NT = BK / 8, DT = D / 8, VS = vstride<D>();
+  const int g = lane >> 2, t = lane & 3;
+  if (k0 + BK > S || (causal && k0 + BK - 1 > row0)) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + j * 8 + 2 * t + (e & 1);
+        const int row = row0 + g + (e >> 1) * 8;
+        if (col >= S || (causal && col > row)) s[j][e] = NEG;
+      }
+  }
+  float alpha[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {  // rows g and g + 8
+    float mx = fmaxf(s[0][2 * i], s[0][2 * i + 1]);
+#pragma unroll
+    for (int j = 1; j < NT; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[i], mx * scale_log2);
+    alpha[i] = ex2(m[i] - m_new);
+    m[i] = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      s[j][2 * i] = ex2(fmaf(s[j][2 * i], scale_log2, -m_new));
+      s[j][2 * i + 1] = ex2(fmaf(s[j][2 * i + 1], scale_log2, -m_new));
+      sum += s[j][2 * i] + s[j][2 * i + 1];
+    }
+    l[i] = fmaf(l[i], alpha[i], sum);
+  }
+  // P's A fragments, split: k8 step j is keys 8j + 2t (k t) and 8j + 2t + 1
+  // (k t + 4), so c0, c1, c2, c3 of s[j] are a0, a2, a1, a3.
+  auto p_frags = [&](int j, unsigned (&ph)[4], unsigned (&pl)[4]) {
+    split(__float_as_uint(s[j][0]), ph[0], pl[0]);  // a0: row g, key 2t
+    split(__float_as_uint(s[j][2]), ph[1], pl[1]);  // a1: row g + 8, key 2t
+    split(__float_as_uint(s[j][1]), ph[2], pl[2]);  // a2: row g, key 2t + 1
+    split(__float_as_uint(s[j][3]), ph[3], pl[3]);  // a3: row g + 8, key 2t + 1
+  };
+  // c += P V of k8 step j and column tile n (this lane: columns 8n + g).
+  auto pv = [&](float (&c)[4], const unsigned (&ph)[4], const unsigned (&pl)[4], int j, int n) {
+    const float* vr = vt + 8 * j * VS + 8 * n;
+    unsigned bh0, bl0, bh1, bl1;
+    split(__float_as_uint(vr[0]), bh0, bl0);   // b0: key 2t
+    split(__float_as_uint(vr[VS]), bh1, bl1);  // b1: key 2t + 1
+    mma3(c, ph, pl, bh0, bh1, bl0, bl1);
+  };
+  auto add = [&](float (&a)[4], const float (&c)[4]) {  // a = a * alpha + c
+    a[0] = fmaf(a[0], alpha[0], c[0]);
+    a[1] = fmaf(a[1], alpha[0], c[1]);
+    a[2] = fmaf(a[2], alpha[1], c[2]);
+    a[3] = fmaf(a[3], alpha[1], c[3]);
+  };
+  float c[DT][4];  // the tile's P V, one chain per column tile
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    unsigned ph[4], pl[4];
+    p_frags(j, ph, pl);
+#pragma unroll
+    for (int n = 0; n < DT; ++n) pv(c[n], ph, pl, j, n);
+  }
+#pragma unroll
+  for (int n = 0; n < DT; ++n) add(acc[n], c[n]);
+}
+
+template <int D, int MINB, bool LSE>
+__global__ void __launch_bounds__(THREADS, MINB)
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                 int H, int HKV, int S, float scale_log2, int causal) {
+  constexpr int BK = bk<D>(), VS = vstride<D>(), DT = D / 8;
+  constexpr int KTILE = BK * D, VTILE = BK * VS;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  float* Ks = Qs + BQ * D;     // two stages
+  float* Vs = Ks + 2 * KTILE;  // two stages
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qb = gridDim.z - 1 - blockIdx.z;  // heaviest (causal) first
+  const int hk = h / (H / HKV);
+  const int q0 = qb * BQ;
+  const long long qoff = (static_cast<long long>(b) * H + h) * S * D;
+  const long long koff = (static_cast<long long>(b) * HKV + hk) * S * D;
+  const float* kp = k + koff;
+  const float* vp = v + koff;
+  float* op = o + qoff;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + warp * 16;  // the warp's first query row
+  const int kend = causal ? min(S, q0 + BQ) : S;
+  const int nkb = (kend + BK - 1) / BK;
+
+  const unsigned ks = smem_addr(Ks);
+  // This lane's ldmatrix offset in a K tile, and its V element (key 2t, column g).
+  const unsigned klane = ldsm_offset<D>((lane & 7) + ((lane >> 4) << 3), (lane >> 3) & 1);
+  const float* vlane = Vs + 2 * t * VS + g;
+
+  QFrags<D, q_in_registers<D>()> qf;
+  float acc[DT][4];
+  float m[2] = {NEG, NEG};  // rows g and g + 8, in log2 units
+  float l[2] = {0.f, 0.f};  // this thread's part of their sums
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  load_rows<BQ, D, D, true>(Qs, q + qoff, q0, S, tid);
+  load_rows<BK, D, D, true>(Ks, kp, 0, S, tid);
+  load_rows<BK, D, VS, false>(Vs, vp, 0, S, tid);
+  cp_async_commit();
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int st = kb & 1, k0 = kb * BK;
+    cp_async_wait<0>();  // block kb has landed
+    __syncthreads();     // ... for every thread, and block kb - 1 is consumed
+    if (kb == 0) qf.load(smem_addr(Qs), warp, lane);
+    if (kb + 1 < nkb) {  // block kb + 1 into the stage of block kb - 1
+      load_rows<BK, D, D, true>(Ks + (st ^ 1) * KTILE, kp, k0 + BK, S, tid);
+      load_rows<BK, D, VS, false>(Vs + (st ^ 1) * VTILE, vp, k0 + BK, S, tid);
+      cp_async_commit();
+    }
+    if (causal && k0 > row0 + 15) continue;  // every key of the tile is above the warp's rows
+    float s[BK / 8][4];
+    qk<D, BK>(s, qf, ks + st * KTILE * 4, klane);
+    softmax_pv<D, BK>(s, acc, m, l, vlane + st * VTILE, k0, row0, S, causal, scale_log2, lane);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float sum = l[i];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float den = fmaxf(sum, 1e-30f);
+    const int row = row0 + g + i * 8;
+    if (row >= S) continue;
+    float* orow = op + static_cast<long long>(row) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+      *reinterpret_cast<float2*>(orow + j * 8) =
+          make_float2(acc[j][2 * i] / den, acc[j][2 * i + 1] / den);
+    if constexpr (LSE) {  // m is in log2 units: lse = (m + log2 l) ln 2
+      if (t == 0) lse[(static_cast<long long>(b) * H + h) * S + row] = (m[i] + log2f(den)) * LN2;
+    }
+  }
+}
+
+template <int D, int MINB, bool LSE>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+           int HKV, int S, float scale, int causal, void* stream) {
+  constexpr int bytes = smem_bytes<D>();
+  // The dynamic shared memory attribute, once per device (bit `dev`).
+  static std::atomic<unsigned long long> ready{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (!(ready.load(std::memory_order_acquire) & bit)) {
+    err = cudaFuncSetAttribute(flash_f32_kernel<D, MINB, LSE>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    ready.fetch_or(bit, std::memory_order_release);
+  }
+  const dim3 grid(H, B, (S + BQ - 1) / BQ);
+  flash_f32_kernel<D, MINB, LSE><<<grid, THREADS, bytes, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, H, HKV, S,
+      scale * tc::LOG2E, causal);
+  return (int)cudaGetLastError();
+}
+
+template <int D, int MINB>
+int launch_lse(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+               int H, int HKV, int S, float scale, int causal, void* stream) {
+  return lse == nullptr
+             ? launch<D, MINB, false>(q, k, v, o, lse, B, H, HKV, S, scale, causal, stream)
+             : launch<D, MINB, true>(q, k, v, o, lse, B, H, HKV, S, scale, causal, stream);
+}
+
+// Blocks per SM: 3 at D = 32 (4 would cap the registers at 128: spills), 2
+// at D = 64 and 128 (shared memory bounds them).
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+             int HKV, int S, int D, float scale, int causal, void* stream) {
+  switch (D) {
+    case 32: return launch_lse<32, 3>(q, k, v, o, lse, B, H, HKV, S, scale, causal, stream);
+    case 64: return launch_lse<64, 2>(q, k, v, o, lse, B, H, HKV, S, scale, causal, stream);
+    case 128: return launch_lse<128, 2>(q, k, v, o, lse, B, H, HKV, S, scale, causal, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace f32
 
 // ---------------------------------------------------------------------------
 // float32 backward on the CUDA cores
@@ -1424,12 +1676,12 @@ int dispatch_bwd(const void* q, const void* k, const void* v, const void* o, con
 }  // namespace
 
 // q (B, H, S, D), k/v (B, HKV, S, D), o (B, H, S, D), contiguous; D in
-// {32, 64, 128}; H a multiple of HKV; bf16 pointers 16-byte aligned.
+// {32, 64, 128}; H a multiple of HKV; pointers 16-byte aligned.
 // lse (B, H, S) float32, or null for none. Returns the CUDA error, or 0.
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
                                    void* o, void* lse, int B, int H, int HKV, int S, int D,
                                    float scale, int causal, void* stream) {
-  return dispatch<float>(q, k, v, o, (float*)lse, B, H, HKV, S, D, scale, causal, stream);
+  return f32::dispatch(q, k, v, o, (float*)lse, B, H, HKV, S, D, scale, causal, stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,

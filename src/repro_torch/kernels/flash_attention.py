@@ -38,8 +38,8 @@ _FNS = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_b
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more: torch.Tensor) -> None:
-    """Shapes, device, type, layout and (bfloat16) alignment of q, k, v
-    and of ``more`` tensors shaped like q."""
+    """Shapes, device, type, layout and 16-byte alignment of q, k, v and
+    of ``more`` tensors shaped like q."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"expected q (B,H,S,D) and k, v (B,Hkv,S,D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -59,8 +59,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more: torch.Tenso
             raise ValueError("q, k, v must be contiguous")
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v, *more)):
-        raise ValueError("bfloat16 q, k, v must start 16-byte aligned")
+    if any(t.data_ptr() % 16 for t in (q, k, v, *more)):
+        raise ValueError(f"{str(q.dtype).removeprefix('torch.')} q, k, v must start "
+                         "16-byte aligned")
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -69,8 +70,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     float32 or bfloat16 (all one type), H a multiple of Hkv, D in
     :data:`HEAD_DIMS`, any S -> (B, H, S, D) in q's type, and with
     ``return_lse`` also the float32 log-sum-exp of each row (B, H, S)
-    that the backward needs. bfloat16 tensors must start 16-byte
-    aligned (the kernel copies 16-byte chunks with ``cp.async``)."""
+    that the backward needs. The tensors must start 16-byte aligned
+    (both forward kernels copy 16-byte chunks with ``cp.async``): a
+    misaligned one raises. float32 runs three-pass TF32 on the tensor
+    cores, bfloat16 bf16 products; both accumulate in float32."""
     global launches
     _check(q, k, v)
     b, h, s, d = q.shape

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import feature_fused as FF
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import morph_recon as MR
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import sobel_stats as SS
@@ -428,6 +429,96 @@ def test_cuda_flash_attention_bf16_misaligned_raises():
     assert ops.launch_counts()["flash_attention"] == 0
 
 
+@pytest.mark.parametrize("b,h,hkv,s,d", [(2, 4, 2, 1000, 64), (1, 4, 2, 200, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention_f32_peaked_scores(b, h, hkv, s, d, causal):
+    """q scaled by 8 in float32: the running max moves by many units
+    between KV tiles, and the three-pass TF32 products must hold the
+    float32 bar. The scores' float32 rounding alone then moves the output
+    by ~1e-5: at D=128 over 1000 keys the plain version is itself 0.9-1.2
+    of the bar from exact attention (benchmarks/torch_flash_f32_ab.py), so
+    D=128 takes the CPU model's 200 keys here, and 1000 keys against exact
+    attention below."""
+    dev = _cuda()
+    q, k, v = _qkv((b, h, s, d), (b, hkv, s, d), torch.float32, dev, np.random.default_rng(d))
+    q = q * 8
+    out, lse = FA.flash_attention_cuda(q, k, v, causal, return_lse=True)
+    want_out, want_lse = ref.flash_attention_fwd_ref(q, k, v, causal)
+    torch.testing.assert_close(out, want_out, **_TOL[torch.float32])
+    torch.testing.assert_close(lse, want_lse, **_TOL[torch.float32])
+    torch.testing.assert_close(ops.flash_attention(q, k, v, causal), want_out,
+                               **_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention_f32_peaked_scores_against_exact(d, causal):
+    """q scaled by 8 over 1000 keys, held at the float32 bar to exact
+    attention (float64 on the card). At D=128 the plain float32 version is
+    itself ~0.9-1.2 of that bar from exact, so the kernel is held to exact
+    there rather than to it."""
+    dev = _cuda()
+    q, k, v = _qkv((2, 4, 1000, d), (2, 2, 1000, d), torch.float32, dev,
+                   np.random.default_rng(d + 1))
+    q = q * 8
+    kd, vd = (t.double().repeat_interleave(2, 1) for t in (k, v))
+    s = q.double() @ kd.transpose(-1, -2) / d ** 0.5
+    if causal:
+        s = s.masked_fill(torch.ones(1000, 1000, dtype=torch.bool, device=dev).triu(1),
+                          float("-inf"))
+    exact = torch.softmax(s, -1) @ vd
+    torch.testing.assert_close(FA.flash_attention_cuda(q, k, v, causal).double(), exact,
+                               **_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d", [(1, 4, 4, 15, 64), (1, 2, 1, 129, 128),
+                                         (2, 4, 4, 77, 32), (2, 8, 2, 1000, 64),
+                                         (1, 4, 2, 1, 64), (1, 8, 2, 300, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention_f32_lse(b, h, hkv, s, d, causal):
+    """The float32 forward with its log-sum-exp (the instantiation that
+    training runs) against ``flash_attention_fwd_ref`` at 2e-5, out and
+    lse; its out is the bits of the call without lse."""
+    dev = _cuda()
+    q, k, v = _qkv((b, h, s, d), (b, hkv, s, d), torch.float32, dev,
+                   np.random.default_rng(s + d))
+    out, lse = FA.flash_attention_cuda(q, k, v, causal, return_lse=True)
+    want_out, want_lse = ref.flash_attention_fwd_ref(q, k, v, causal)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, s)
+    torch.testing.assert_close(out, want_out, **_TOL[torch.float32])
+    torch.testing.assert_close(lse, want_lse, **_TOL[torch.float32])
+    assert torch.equal(out, FA.flash_attention_cuda(q, k, v, causal))
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_cuda_flash_attention_f32_is_bit_equal_on_repeat(d):
+    """Two calls give the same bits, each one launch of the three-pass
+    TF32 kernel (the CUDA-core float32 forward is gone)."""
+    dev = _cuda()
+    q, k, v = _qkv((2, 8, 333, d), (2, 2, 333, d), torch.float32, dev,
+                   np.random.default_rng(d))
+    first = FA.flash_attention_cuda(q, k, v, True, return_lse=True)
+    again = FA.flash_attention_cuda(q, k, v, True, return_lse=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    names = _device_kernel_names(lambda: FA.flash_attention_cuda(q, k, v, True))
+    assert len(names) == 3 and all("flash_f32_kernel" in n for n in names), names
+
+
+def test_cuda_flash_attention_f32_misaligned_raises():
+    """The float32 kernel also copies 16-byte chunks: a float32 tensor
+    that starts one element into its storage is refused, not read."""
+    dev = _cuda()
+    shape = (1, 2, 64, 64)
+    q = torch.zeros(int(np.prod(shape)) + 1, dtype=torch.float32, device=dev)[1:].view(shape)
+    k = torch.zeros(shape, dtype=torch.float32, device=dev)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    ops.reset_launch_counts()
+    for args in ((q, k, k), (k, q, k), (k, k, q)):
+        with pytest.raises(ValueError, match="aligned"):
+            ops.flash_attention(*args, True)
+    assert ops.launch_counts()["flash_attention"] == 0
+
+
 def _decode_want(q, k, v, lens):
     """The plain version, with zeros where a length is 0 (the plain
     softmax over no key gives NaN there; the kernel, like the TPU
@@ -659,7 +750,6 @@ def _assert_rows_close(got, want, frac, name):
 
 def _flash_bwd_inputs(b, h, hkv, s, d, dtype, causal, dev, seed):
     """q, k, v, out, lse (from the forward kernel) and a random dout."""
-    from repro_torch.kernels import flash_attention as FA
 
     q, k, v = _qkv((b, h, s, d), (b, hkv, s, d), dtype, dev, np.random.default_rng(seed))
     out, lse = FA.flash_attention_cuda(q, k, v, causal, return_lse=True)
@@ -679,7 +769,6 @@ def test_cuda_flash_attention_backward(s, group, d, causal, dtype):
     (float32) the gradients against the plain backward of the plain
     forward; in bfloat16 that would measure the forward's rounding of
     out, which moves Dvec = rowsum(dO * O) and so whole rows of dS."""
-    from repro_torch.kernels import flash_attention as FA
 
     dev = _cuda()
     b, hkv = 1, 2
@@ -709,7 +798,6 @@ def test_cuda_flash_attention_backward_is_bit_equal_on_repeat(dtype, group):
     """No atomics: each gradient element is summed by one thread in a
     fixed order (bfloat16: a query group's float32 partials summed in
     head order), so two calls give the same bits."""
-    from repro_torch.kernels import flash_attention as FA
 
     dev = _cuda()
     args = _flash_bwd_inputs(4, 8 * group, 8, 1000, 64, dtype, True, dev, seed=3)
@@ -720,7 +808,6 @@ def test_cuda_flash_attention_backward_is_bit_equal_on_repeat(dtype, group):
 
 
 def test_cuda_flash_attention_backward_takes_non_contiguous_dout():
-    from repro_torch.kernels import flash_attention as FA
 
     dev = _cuda()
     q, k, v, out, lse, dout = _flash_bwd_inputs(1, 4, 2, 77, 64, torch.bfloat16, True, dev, 5)
@@ -751,7 +838,6 @@ def _directional_check(loss_fn, inputs, eps, rtol, seed):
 def test_cuda_flash_attention_gradient_finite_differences():
     """float32, tiny: the autograd path (forward kernel with lse, backward
     kernel) against central differences, GQA and causal."""
-    from repro_torch.kernels import flash_attention as FA
 
     dev = _cuda()
     q, k, v = _qkv((1, 4, 37, 32), (1, 2, 37, 32), torch.float32, dev, np.random.default_rng(9))
