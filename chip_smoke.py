@@ -10,9 +10,10 @@ each kernel's registers and spills from ``ptxas``, and counts the
 tensor-core instructions (``HMMA``/``HGMMA``, from ``cuobjdump -sass``)
 of the bfloat16 flash_attention kernels for each head dim (forward,
 backward dQ and dK/dV): it fails if one spills or has none; the float32
-forward's TF32 ``HMMA`` (three passes of each product): it fails if one
-spills or its count is not a whole number of three-pass tiles; and fails
-if an instantiation of the mamba2_chunk_scan backward spills.
+forward's and backward's (dQ, dK/dV) TF32 ``HMMA`` (three passes of each
+product): it fails if one spills or its count is not a whole number of
+three-pass tiles, or if a CUDA-core float32 flash kernel is still built;
+and fails if an instantiation of the mamba2_chunk_scan backward spills.
 
 Phase 1, kernels: each hand-written kernel against its plain PyTorch
 version on the card, at the shapes its main path gives it, with CUDA
@@ -140,9 +141,12 @@ F=64*64, float32. A repeated call must give the same bits; the bf16
 flash backward must launch ``bwd_kernels`` device kernels per call
 (profiler), the scan backward one; times as above, with SDPA's backward
 beside flash's at the training and GQA shapes, itself held to the bf16
-bar against the plain backward on its own out; the float32 backward is
-timed too, at phase 7b's shape and at one rank's of phase 10 (b)
-(``float32_bwd_shapes``), beside SDPA's float32 backward; beside the scan
+bar against the plain backward on its own out; the float32 backward
+(three-pass TF32, 2 kernels a call at a group of 1) is held to 2**-12 of
+each row's largest on the same inputs and end to end, and timed, also
+with L2 flushed clean, at phase 7b's shape and at one rank's of phase 10
+(b) (``float32_bwd_shapes``) and at 4x32x1024x64 and 1x32(8)x1024x128
+(``F32_BWD_TIMING``), beside SDPA's float32 backward; beside the scan
 backward a PyTorch add of the same bytes, its plan and its time with L2
 flushed clean.
 
@@ -429,12 +433,13 @@ def flash_build_report(ptxas: dict) -> dict:
     kernels (``bwd_dq_d32`` ...; dK/dV in its group-of-1 and its partial
     instantiation, ``bwd_dkdv_d32`` and ``bwd_dkdv_d32_partial``);
     registers, spills and TF32 ``HMMA`` count of the float32 forward
-    (``f32_d32`` ..., ``f32_d32_lse`` ...); registers and spills of the
-    float32 backward (``bwd_f32``). Fails on a spill of a bf16 kernel or
-    of the float32 forward, on a bf16 kernel with no tensor-core
-    instruction, on a float32 forward whose TF32 ``HMMA`` count is not a
-    whole number of three-pass tiles, or if the CUDA-core float32
-    forward is still built."""
+    (``f32_d32`` ..., ``f32_d32_lse`` ...) and of the float32 backward's
+    dQ and dK/dV kernels with one and two warp groups a block
+    (``f32_bwd_dq_d32_g1`` ..., ``f32_bwd_dkdv_d32_g1``,
+    ``f32_bwd_dkdv_d32_partial_g2`` ...). Fails on a spill, on a bf16 kernel
+    with no tensor-core instruction, on a float32 kernel whose TF32
+    ``HMMA`` count is not a whole number of three-pass tiles, or if a
+    CUDA-core float32 kernel (forward or backward) is still built."""
     from repro_torch.kernels import _build
 
     entries = ptxas_entries(ptxas["flash_attention"])
@@ -461,30 +466,44 @@ def flash_build_report(ptxas: dict) -> dict:
         check(mma[0] > 0, f"{what} has no HMMA/HGMMA instruction")
         check(found[0].get("spill_stores") == 0 and found[0].get("spill_loads") == 0,
               f"{what} spills: {found[0]}")
-    # The float32 forward: three-pass TF32 on mma.sync, 6 (D / 8)(BK / 8)
-    # TF32 HMMA a tile (QK^T and PV, three products each) in SASS.
+    # The float32 kernels: three-pass TF32 on mma.sync. A tile is BK keys
+    # (forward: 6 (D / 8)(BK / 8) TF32 HMMA, QK^T and PV) or a step of NC
+    # columns (backward dQ: 9 (D / 8)(NC / 8), S, dP and dQ; dK/dV: 12,
+    # S^T, dP^T, dV and dK), three products each.
     tf32 = hmma_counts(_build._target("flash_attention"), r"\bHMMA\.1688\.F32\.TF32\b")
-    for d, bk in ((32, 64), (64, 64), (128, 32)):
+    f32_wanted = {}
+    for d, bk, nc in ((32, 64, 32), (64, 64, 32), (128, 32, 16)):
         for lse, suffix in ((0, ""), (1, "_lse")):
-            what = f"float32 flash kernel D={d}{suffix}"
-            key = re.compile(rf"flash_f32_kernelILi{d}ELi\d+ELb{lse}E")
-            found = [v for n, v in entries.items() if key.search(n)]
-            mma = [c for n, c in tf32.items() if key.search(n)]
-            check(len(found) == 1 and len(mma) == 1,
-                  f"{what}: {len(found)} ptxas entries, {len(mma)} SASS functions")
-            per_tile = 6 * (d // 8) * (bk // 8)
-            check(mma[0] > 0 and mma[0] % per_tile == 0,
-                  f"{what}: {mma[0]} TF32 HMMA, not a multiple of {per_tile} (3 passes of "
-                  f"QK^T and PV over a {bk}-key tile)")
-            check(found[0].get("spill_stores") == 0 and found[0].get("spill_loads") == 0,
-                  f"{what} spills: {found[0]}")
-            report[f"f32_d{d}{suffix}"] = dict(found[0], hmma_tf32=mma[0],
-                                               hmma_tf32_per_tile=per_tile)
+            f32_wanted[f"f32_d{d}{suffix}"] = (
+                f"float32 flash kernel D={d}{suffix}",
+                rf"flash_f32_kernelILi{d}ELi\d+ELb{lse}E", 6 * (d // 8) * (bk // 8),
+                f"3 passes of QK^T and PV over a {bk}-key tile")
+        for groups in (1, 2):  # warp groups a block
+            f32_wanted[f"f32_bwd_dq_d{d}_g{groups}"] = (
+                f"float32 flash backward dQ kernel D={d} G={groups}",
+                rf"flash_bwd_dq_f32_kernelILi{d}ELi\d+ELb[01]ELi{groups}EE",
+                9 * (d // 8) * (nc // 8), f"3 passes of S, dP and dQ over a {nc}-key step")
+            for part, suffix in ((0, ""), (1, "_partial")):
+                f32_wanted[f"f32_bwd_dkdv_d{d}{suffix}_g{groups}"] = (
+                    f"float32 flash backward dK/dV kernel D={d}{suffix} G={groups}",
+                    rf"flash_bwd_dkdv_f32_kernelILi{d}ELi\d+ELb[01]ELb{part}ELi{groups}EE",
+                    12 * (d // 8) * (nc // 8),
+                    f"3 passes of S^T, dP^T, dV and dK over a {nc}-query step")
+    for name, (what, pattern, per_tile, unit) in f32_wanted.items():
+        key = re.compile(pattern)
+        found = [v for n, v in entries.items() if key.search(n)]
+        mma = [c for n, c in tf32.items() if key.search(n)]
+        check(len(found) == 1 and len(mma) == 1,
+              f"{what}: {len(found)} ptxas entries, {len(mma)} SASS functions")
+        check(mma[0] > 0 and mma[0] % per_tile == 0,
+              f"{what}: {mma[0]} TF32 HMMA, not a multiple of {per_tile} ({unit})")
+        check(found[0].get("spill_stores") == 0 and found[0].get("spill_loads") == 0,
+              f"{what} spills: {found[0]}")
+        report[name] = dict(found[0], hmma_tf32=mma[0], hmma_tf32_per_tile=per_tile)
     check(not any("flash_fwd_kernel" in n for n in sass),
           "the CUDA-core float32 forward (flash_fwd_kernel) is still built")
-    report["bwd_f32"] = {re.search(r"(flash_bwd_\w+?_kernel)I(\w+?)(Li\d+E)?E", n).expand(
-        r"\1<\2\3>"): v for n, v in entries.items()
-        if "flash_bwd_" in n and "_tc_" not in n and "_sum_" not in n}
+    old_bwd = [n for n in sass if re.search(r"flash_bwd_(dvec|dq|dkdv)_kernelI", n)]
+    check(not old_bwd, f"the CUDA-core float32 backward is still built: {old_bwd}")
     report["hmma_in_library"] = sum(sass.values())
     return report
 
@@ -1867,6 +1886,12 @@ def phase_hybrid() -> dict:
     return dict(runs=runs, fig7=fig7, numpy_s=numpy_s, mask_agreement=agree, seconds=seconds)
 
 
+#: Two float32 flash backward shapes that fill the card, timed in phase 1
+#: beside the path's (``float32_bwd_shapes``): (B, H, Hkv, S, D), causal.
+F32_BWD_TIMING = {"4x32x1024x64": (4, 32, 32, 1024, 64),
+                  "1x32(8)x1024x128": (1, 32, 8, 1024, 128)}
+
+
 def float32_bwd_shapes() -> dict:
     """The float32 flash backward's launches on the paths: phase 7b's
     (``TRAIN``'s model, batch 1 x 256) and one rank's of phase 10 (b)
@@ -1890,11 +1915,14 @@ def phase_backward_kernels() -> dict:
     F=64*64, float32. Each must give the same bits on a repeated call;
     timed with CUDA events (median, L2 flushed) beside the bound, the
     plain version and, for attention, SDPA's backward on the same
-    inputs. The scan backward's row also has its plan (splits, vec, k,
-    threads), its device kernels per call (profiler; must be 1), its
-    time with L2 flushed clean, and ``bytes_yardstick_ms``: a PyTorch
-    add that reads two tensors of the states' size and writes one (no
-    PyTorch call computes the function, so ``library_ms`` is None)."""
+    inputs. The float32 flash rows: the path's shapes
+    (``float32_bwd_shapes``) and two that fill the card
+    (``F32_BWD_TIMING``), each also timed with L2 flushed clean. The scan
+    backward's row also has its plan (splits, vec, k, threads), its
+    device kernels per call (profiler; must be 1), its time with L2
+    flushed clean, and ``bytes_yardstick_ms``: a PyTorch add that reads
+    two tensors of the states' size and writes one (no PyTorch call
+    computes the function, so ``library_ms`` is None)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1905,6 +1933,7 @@ def phase_backward_kernels() -> dict:
 
     dev = torch.device("cuda", 0)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev).zero_
+    clean = torch.ones(256 << 20, dtype=torch.uint8, device=dev).max
     rng = np.random.default_rng(47)
     gpu = lambda a, dt=torch.float32: torch.as_tensor(a, device=dev).to(dt)  # noqa: E731
     normal = lambda *shape: rng.normal(0, 1, shape).astype(np.float32)  # noqa: E731
@@ -1919,7 +1948,9 @@ def phase_backward_kernels() -> dict:
     # the row's largest, apart) and the kernel rounds P and dS to bfloat16
     # before its products (under 2**-7 more: derived and measured in
     # tests/test_torch_flash_bwd_numerics.py), so the bar is two ulps;
-    # float32 differs by summation order only. float32 is
+    # float32 differs by summation order and the three TF32 passes (each
+    # product within about 2**-22 of float32's; modelled in
+    # tests/test_torch_flash_bwd_f32_numerics.py). float32 is
     # also held end to end, against the plain backward of the plain
     # forward's out and lse; in bfloat16 that would measure the forward's
     # rounding of out (one ulp of out moves Dvec = rowsum(dO * O), and so
@@ -1993,19 +2024,24 @@ def phase_backward_kernels() -> dict:
         # q, o, dout, dq (B, H, S, D), k, v, dk, dv (B, Hkv, S, D) and lse, once
         nbytes = args[0].element_size() * (4 * elems + 4 * kv_elems) + 4 * b * h * s
         bms, by = attention_bound(nbytes, 5 * 2.0 * tri * d, dt == torch.float32)
-        return dict(shape=[b, h, hkv, s, d], max_abs_err=err, kernels_per_call=per_call,
-                    ms=time_ms(fn, 10, flush),
-                    plain_ms=time_ms(lambda: ref.flash_attention_bwd_ref(*args), 3, flush),
-                    bound_ms=bms, bound_by=by, library_ms=time_ms(sdpa_bwd, 10, flush))
+        rec = dict(shape=[b, h, hkv, s, d], max_abs_err=err, kernels_per_call=per_call,
+                   ms=time_ms(fn, 10, flush),
+                   plain_ms=time_ms(lambda: ref.flash_attention_bwd_ref(*args), 3, flush),
+                   bound_ms=bms, bound_by=by, library_ms=time_ms(sdpa_bwd, 10, flush))
+        if dt == torch.float32:
+            rec["ms_clean_l2"] = time_ms(fn, 10, clean)
+        return rec
 
     flash_case(2, 8, 2, 1000, 64, torch.bfloat16, "ragged")
     flash_case(2, 8, 8, 1000, 64, torch.float32, "float32")
     f32 = {}
-    for key, (b, h, hkv, s, d) in float32_bwd_shapes().items():
+    for key, (b, h, hkv, s, d) in {**float32_bwd_shapes(), **F32_BWD_TIMING}.items():
         err, args = flash_case(b, h, hkv, s, d, torch.float32, key)
         f32[key] = kernel_record(b, h, hkv, s, d, err, args, sdpa_case(args, key),
                                  torch.float32)
         del args
+        gc.collect()
+        torch.cuda.empty_cache()
     b, h, hkv, s, d = 1, 32, 8, 1024, 128
     err, args = flash_case(b, h, hkv, s, d, torch.bfloat16, "GQA")
     gqa = kernel_record(b, h, hkv, s, d, err, args, sdpa_case(args, "GQA"))

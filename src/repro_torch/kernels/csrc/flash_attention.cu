@@ -152,12 +152,53 @@
 // - Registers: D <= 64 holds Q/dO (dQ) and K/V (dK/dV) as fragments;
 //   D = 128 reads them from shared memory at each use (the dK and dV
 //   accumulators alone take 128 registers a thread).
-// float32 (`flash_bwd_*_kernel<float, D>`, for float32 callers): the
-// first backward's CUDA-core kernels, unchanged: `flash_bwd_dvec_kernel`
-// (one warp per row), `flash_bwd_dq_kernel` and `flash_bwd_dkdv_kernel`
-// (a block per key block and KV head, walking every query head of its
-// group); tiles in shared memory as float32 rows of D + 1. Three
-// launches per call.
+// float32 (`flash_bwd_dq_f32_kernel`, `flash_bwd_dkdv_f32_kernel`, for
+// float32 callers): the bf16 backward's two kernels, grids, Dvec
+// prologue, ring, masks, skips and GQA partials, with every one of the
+// seven products in the forward's three-pass TF32 on `mma.sync.m16n8k8`
+// (lo*hi + hi*lo + hi*hi, operands split as `cvt.rna.tf32.f32` rounds).
+// - Short chains: S and dP sum hi*hi apart from the small terms (the
+//   forward's Q K^T); each step's dQ, dK and dV product is summed from
+//   zero, one column tile at a time, and added to its float32
+//   accumulator with one add, so no truncated chain grows with S.
+// - P and dS stay float32 in the C fragments and become split A
+//   fragments with the forward's key renumbering (k index t of an 8-column
+//   step stands for column 2t, t + 4 for 2t + 1: c0, c1, c2, c3 are a0, a2,
+//   a1, a3), so the second operand's B fragment is rows 2t and 2t + 1,
+//   column g. Every tile is stored in one layout, swizzled as the
+//   forward's K: `ldmatrix` reads it as a B operand with k = d (K in
+//   Q K^T, Q in K Q^T), and 32-bit loads read it with k = row (K in dS K,
+//   Q in dS^T Q, dO in P^T dO): lane (g, t) reads physical chunk
+//   (2n + g / 4) ^ 2t of row 2t, so the 32 lanes hit 32 banks with no
+//   second layout and no padding.
+// - Splits: at D <= 64 each streamed tile is split once into hi and lo
+//   tiles as it lands, by the threads that copied it (`split_rows`, no
+//   extra barrier), so the B operands cost two loads and no arithmetic;
+//   at D = 128 the two halves would leave one block an SM, and every warp
+//   splits the raw tile at each use (at 4x32x1024x64 on an H100, split
+//   at use took 1.27 ms, split once 1.02). A operands split once into
+//   registers at D = 32, read by ldmatrix and split at each use above.
+// - Tiles: 64-row blocks (16 rows a warp); streamed tiles of 64, 32, 16
+//   rows and steps of 32, 32, 16 columns at D = 32, 64, 128; shared
+//   memory 81, 97, 96 KB with one warp group (two blocks an SM), 146, 161,
+//   129 KB with two (see below). At D = 128 the dK and dV
+//   accumulators alone would take 128 registers a thread (255 and a
+//   spill), so the dK/dV grid holds a dV block and a dK block for each
+//   key block (`split_dkdv`): S^T is computed in both, 5 products for 4,
+//   in twice the blocks. The dQ kernel's grid is the bf16 one. Launches
+//   per call: 2 with a group of 1, else 3 (the group sum writes float32).
+// - Warp groups: where a kernel's grid has at most two blocks an SM (the
+//   training path's shapes: 128 and 80 dQ blocks), a block runs two
+//   groups of 4 warps over alternate tiles of the stream (the ring holds
+//   two tiles a stage), each with its own accumulators, and group 1's are
+//   added to group 0's through shared memory at the end, in one order:
+//   repeats stay bit-equal. Else one group, two blocks an SM.
+// - Address offsets: `chunk_pair` and `BCols` keep 4 XORed lane offsets
+//   in registers and the rest as immediates, not one register per chunk
+//   pair or column tile (D / 8 of each, hoisted out of the tile loop).
+// - Bound: as below, with the five products at three TF32 passes (494.7
+//   TFLOP/s): at B=4, H=32, S=1024, D=64 float32 causal, 269.0 MB (0.0803
+//   ms) against 129.0 GFLOP (0.2608 ms): operations bound it.
 // Bound: at B=4, H=32, S=1024, D=64, bf16, causal, q, k, v, o, dO, lse
 // in and dQ, dK, dV out move 134.7 MB (0.0402 ms at 3.35 TB/s); the
 // five products over the lower triangle (S and dP once, dV, dK, dQ)
@@ -174,10 +215,6 @@
 namespace {
 
 constexpr float NEG = -1.0e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 
 // ---------------------------------------------------------------------------
 // bfloat16 on the tensor cores
@@ -594,15 +631,22 @@ template <int D>
 __device__ __forceinline__ unsigned ldsm_offset(int r, int c) {
   return r * D * 4 + ((c ^ (r & 7)) << 4);
 }
+// Chunk pair kk of an ldsm_offset (of rows under 16, or plus whole rows of
+// 16): offset ^ (kk << 5), written as an XOR of kk mod 4 and an immediate
+// for the rest (the bits above the swizzle are clear), so that a loop over
+// the tiles holds 4 such offsets in registers, not D / 8.
+__device__ __forceinline__ unsigned chunk_pair(unsigned offset, int kk) {
+  return (offset ^ ((kk & 3) << 5)) + ((kk >> 2) << 7);
+}
 
 // ROWS rows of D floats from row `row` of `src` into a tile of row
 // stride STRIDE floats, by cp.async in 16-byte chunks (SWZ: chunk ch of
-// row r at ch ^ (r mod 8)); rows past S are zero-filled (source size 0,
-// nothing read).
-template <int ROWS, int D, int STRIDE, bool SWZ>
+// row r at ch ^ (r mod 8)) by NT threads; rows past S are zero-filled
+// (source size 0, nothing read).
+template <int ROWS, int D, int STRIDE, bool SWZ, int NT = THREADS>
 __device__ __forceinline__ void load_rows(float* dst, const float* src, int row, int S, int tid) {
-  constexpr int CH = D / 4, STEP = THREADS / CH;
-  static_assert(THREADS % CH == 0 && ROWS % STEP == 0, "whole passes over the tile");
+  constexpr int CH = D / 4, STEP = NT / CH;
+  static_assert(NT % CH == 0 && ROWS % STEP == 0, "whole passes over the tile");
   const int r = tid / CH, ch = tid % CH;
 #pragma unroll
   for (int i = 0; i < ROWS / STEP; ++i) {
@@ -613,19 +657,37 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src, int row,
   }
 }
 
-// A warp's 16 rows of Q as the hi and lo A fragments of D / 8 k8 steps
+// The hi and lo fragments of an ldmatrix.x4 at shared address `addr`:
+// split from the raw tile (LO 0), or read from a tile split once, its lo
+// half LO floats past its hi half.
+template <int LO>
+__device__ __forceinline__ void b_frags(unsigned addr, unsigned (&h)[4], unsigned (&l)[4]) {
+  if constexpr (LO != 0) {
+    ldsm_x4(h, addr);
+    ldsm_x4(l, addr + LO * 4);
+  } else {
+    unsigned raw[4];
+    ldsm_x4(raw, addr);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split(raw[e], h[e], l[e]);
+  }
+}
+
+// A warp's 16 rows of a swizzled tile (the forward's Q; the backward's Q
+// and dO, or K and V) as the hi and lo A fragments of D / 8 k8 steps: split
+// once into registers (REGS), or read by ldmatrix and split at each use
 // (see q_in_registers).
 template <int D, bool REGS>
-struct QFrags {
+struct ARows {
   unsigned hi[REGS ? D / 8 : 1][4], lo[REGS ? D / 8 : 1][4];
-  unsigned tile, off;  // the Q tile's shared address; this lane's ldsm_offset in it
+  unsigned tile, off;  // the tile's shared address; this lane's ldsm_offset in it
   __device__ __forceinline__ void load(unsigned q_tile, int warp, int lane) {
     tile = q_tile;
     off = warp * 16 * D * 4 + ldsm_offset<D>(lane & 15, lane >> 4);
     if constexpr (REGS) {
 #pragma unroll
       for (int kk = 0; kk < D / 8; ++kk) {
-        ldsm_x4(hi[kk], tile + (off ^ (kk << 5)));
+        ldsm_x4(hi[kk], tile + chunk_pair(off, kk));
 #pragma unroll
         for (int e = 0; e < 4; ++e) split(hi[kk][e], hi[kk][e], lo[kk][e]);
       }
@@ -639,20 +701,19 @@ struct QFrags {
         l[e] = lo[kk][e];
       }
     } else {
-      unsigned raw[4];
-      ldsm_x4(raw, tile + (off ^ (kk << 5)));
-#pragma unroll
-      for (int e = 0; e < 4; ++e) split(raw[e], h[e], l[e]);
+      b_frags<0>(tile + chunk_pair(off, kk), h, l);
     }
   }
 };
 
-// s (16 x BK) = the warp's 16 rows of Q times K^T: hi*hi summed apart from
-// the two small terms, which are added at the end. kt: the K tile's shared
-// address; klane: this lane's ldsm_offset in it.
-template <int D, int BK, bool REGS>
-__device__ __forceinline__ void qk(float (&s)[BK / 8][4], const QFrags<D, REGS>& qf,
-                                   unsigned kt, unsigned klane) {
+// s (16 x BK) = the warp's 16 rows of A times rows [0, BK) of a swizzled
+// tile, transposed (the forward's Q K^T): hi*hi summed apart from the two
+// small terms, which are added at the end. kt: the shared address of the
+// tile's first row; klane: this lane's ldsm_offset in it; LO: the tile's,
+// see b_frags.
+template <int D, int BK, bool REGS, int LO = 0>
+__device__ __forceinline__ void mm_nt(float (&s)[BK / 8][4], const ARows<D, REGS>& qf,
+                                      unsigned kt, unsigned klane) {
   float sl[BK / 8][4];
 #pragma unroll
   for (int j = 0; j < BK / 8; ++j)
@@ -662,13 +723,11 @@ __device__ __forceinline__ void qk(float (&s)[BK / 8][4], const QFrags<D, REGS>&
   for (int kk = 0; kk < D / 8; ++kk) {
     unsigned ah[4], al[4];
     qf.get(kk, ah, al);
-    const unsigned a = kt + (klane ^ (kk << 5));  // d chunks 2kk, 2kk + 1
+    const unsigned a = kt + chunk_pair(klane, kk);  // d chunks 2kk, 2kk + 1
 #pragma unroll
     for (int p = 0; p < BK / 16; ++p) {
-      unsigned kf[4], bh[4], bl[4];  // b0, b1 of key tile 2p, then of 2p + 1
-      ldsm_x4(kf, a + p * 16 * D * 4);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) split(kf[e], bh[e], bl[e]);
+      unsigned bh[4], bl[4];  // b0, b1 of key tile 2p, then of 2p + 1
+      b_frags<LO>(a + p * 16 * D * 4, bh, bl);
       mma3_split(s[2 * p], sl[2 * p], ah, al, bh[0], bh[1], bl[0], bl[1]);
       mma3_split(s[2 * p + 1], sl[2 * p + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
     }
@@ -791,7 +850,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const unsigned klane = ldsm_offset<D>((lane & 7) + ((lane >> 4) << 3), (lane >> 3) & 1);
   const float* vlane = Vs + 2 * t * VS + g;
 
-  QFrags<D, q_in_registers<D>()> qf;
+  ARows<D, q_in_registers<D>()> qf;
   float acc[DT][4];
   float m[2] = {NEG, NEG};  // rows g and g + 8, in log2 units
   float l[2] = {0.f, 0.f};  // this thread's part of their sums
@@ -816,7 +875,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     if (causal && k0 > row0 + 15) continue;  // every key of the tile is above the warp's rows
     float s[BK / 8][4];
-    qk<D, BK>(s, qf, ks + st * KTILE * 4, klane);
+    mm_nt<D, BK>(s, qf, ks + st * KTILE * 4, klane);
     softmax_pv<D, BK>(s, acc, m, l, vlane + st * VTILE, k0, row0, S, causal, scale_log2, lane);
   }
 
@@ -883,352 +942,6 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, i
 }
 
 }  // namespace f32
-
-// ---------------------------------------------------------------------------
-// float32 backward on the CUDA cores
-
-namespace bwd {
-
-constexpr int BQ = 64;  // query rows per tile
-constexpr int BK = 64;  // keys per tile
-constexpr int THREADS = 256;
-
-template <int D>
-struct Smem {
-  static constexpr int DS = D + 1;   // a row of D floats, odd stride
-  static constexpr int PS = BK + 1;  // a row of a 64 x 64 score tile
-  // dQ: Q, dO, K, V tiles, the dS tile, lse and Dvec of the q rows.
-  static constexpr int DQ_BYTES = ((2 * BQ + 2 * BK) * DS + BQ * PS + 2 * BQ) * 4;
-  // dK/dV: K, V, Q, dO tiles, P^T and dS^T tiles, lse and Dvec.
-  static constexpr int DKV_BYTES = ((2 * BQ + 2 * BK) * DS + 2 * BK * PS + 2 * BQ) * 4;
-};
-
-// Rows [r0, r0 + 64) of an (S, D) matrix into a float tile of row
-// stride D + 1; rows past S are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int r0, int S,
-                                          int tid) {
-  for (int i = tid; i < 64 * D; i += THREADS) {
-    const int r = i / D, c = i % D;
-    dst[r * (D + 1) + c] = r0 + r < S ? to_f(src[static_cast<long long>(r0 + r) * D + c]) : 0.f;
-  }
-}
-
-// lse and Dvec of rows [r0, r0 + 64) (0 past S).
-__device__ __forceinline__ void load_rows(float* ls, float* dv, const float* __restrict__ lse,
-                                          const float* __restrict__ dvec, int r0, int S,
-                                          int tid) {
-  if (tid < BQ) {
-    const bool ok = r0 + tid < S;
-    ls[tid] = ok ? lse[r0 + tid] : 0.f;
-    dv[tid] = ok ? dvec[r0 + tid] : 0.f;
-  }
-}
-
-// dvec[row] = sum_d dout[row, d] * o[row, d]: one warp per row.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dvec_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                      float* __restrict__ dvec, long long rows, int D) {
-  const long long row = static_cast<long long>(blockIdx.x) * (THREADS / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;  // the whole warp leaves together
-  const T* op = o + row * D;
-  const T* dp = dout + row * D;
-  float s = 0.f;
-  for (int d = lane; d < D; d += 32) s = fmaf(to_f(op[d]), to_f(dp[d]), s);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) dvec[row] = s;
-}
-
-// One block per (q block, head, batch): dQ of 64 rows. A thread holds
-// rows ty * 4 + i and keys tx + 16 j of each 64 x 64 tile, then rows
-// ty * 4 + i and dims tx + 16 j of dQ.
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ dvec, T* __restrict__ dq, int H, int HKV, int S,
-                    float scale, int causal) {
-  using L = Smem<D>;
-  constexpr int DS = L::DS, PS = L::PS, DJ = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + BQ * DS;
-  float* Ks = dOs + BQ * DS;
-  float* Vs = Ks + BK * DS;
-  float* dSs = Vs + BK * DS;
-  float* Ls = dSs + BQ * PS;
-  float* Dv = Ls + BQ;
-
-  const int qb = gridDim.x - 1 - blockIdx.x;  // heaviest (causal) first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (H / HKV);
-  const int q0 = qb * BQ;
-  const long long rows = (static_cast<long long>(b) * H + h) * S;
-  const long long qoff = rows * D;
-  const long long koff = (static_cast<long long>(b) * HKV + hk) * S * D;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-
-  load_tile<T, D>(Qs, q + qoff, q0, S, tid);
-  load_tile<T, D>(dOs, dout + qoff, q0, S, tid);
-  load_rows(Ls, Dv, lse + rows, dvec + rows, q0, S, tid);
-
-  float acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-
-  const int kend = causal ? min(S, q0 + BQ) : S;
-  const int nkb = (kend + BK - 1) / BK;
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int k0 = kb * BK;
-    __syncthreads();  // the previous tiles are consumed
-    load_tile<T, D>(Ks, k + koff, k0, S, tid);
-    load_tile<T, D>(Vs, v + koff, k0, S, tid);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], ov[4], kv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = Qs[(ty * 4 + i) * DS + d];
-        ov[i] = dOs[(ty * 4 + i) * DS + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = Ks[(tx + 16 * j) * DS + d];
-        vv[j] = Vs[(tx + 16 * j) * DS + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i, row = q0 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const bool ok = row < S && col < S && (!causal || col <= row);
-        const float p = ok ? expf(s[i][j] * scale - Ls[r]) : 0.f;
-        dSs[r * PS + tx + 16 * j] = p * (dp[i][j] - Dv[r]);
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float dsv[4], kv[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = dSs[(ty * 4 + i) * PS + kk];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) kv[j] = Ks[kk * DS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(dsv[i], kv[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= S) continue;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      dq[qoff + static_cast<long long>(row) * D + tx + 16 * j] = from_f<T>(acc[i][j] * scale);
-  }
-}
-
-// One block per (key block, KV head, batch): dK and dV of 64 keys, summed
-// over the query heads of the group and their q tiles. A thread holds
-// keys ty * 4 + i and queries tx + 16 j of each tile, then keys
-// ty * 4 + i and dims tx + 16 j of dK and dV.
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
-                      const float* __restrict__ lse, const float* __restrict__ dvec,
-                      T* __restrict__ dk, T* __restrict__ dv, int H, int HKV, int S,
-                      float scale, int causal) {
-  using L = Smem<D>;
-  constexpr int DS = L::DS, PS = L::PS, DJ = D / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BK * DS;
-  float* Qs = Vs + BK * DS;
-  float* dOs = Qs + BQ * DS;
-  float* Pt = dOs + BQ * DS;  // [key][query]
-  float* dSt = Pt + BK * PS;  // [key][query]
-  float* Ls = dSt + BK * PS;
-  float* Dv = Ls + BQ;
-
-  const int kb = blockIdx.x;  // the first key blocks see the most q tiles (causal)
-  const int hk = blockIdx.y, b = blockIdx.z;
-  const int group = H / HKV;
-  const int k0 = kb * BK;
-  const long long koff = (static_cast<long long>(b) * HKV + hk) * S * D;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-
-  load_tile<T, D>(Ks, k + koff, k0, S, tid);
-  load_tile<T, D>(Vs, v + koff, k0, S, tid);
-
-  float adk[4][DJ], adv[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) adk[i][j] = adv[i][j] = 0.f;
-
-  const int nqb = (S + BQ - 1) / BQ;
-  const int qstart = causal ? k0 / BQ : 0;
-  for (int g = 0; g < group; ++g) {
-    const int h = hk * group + g;
-    const long long rows = (static_cast<long long>(b) * H + h) * S;
-    for (int qb = qstart; qb < nqb; ++qb) {
-      const int q0 = qb * BQ;
-      __syncthreads();  // the previous tiles are consumed
-      load_tile<T, D>(Qs, q + rows * D, q0, S, tid);
-      load_tile<T, D>(dOs, dout + rows * D, q0, S, tid);
-      load_rows(Ls, Dv, lse + rows, dvec + rows, q0, S, tid);
-      __syncthreads();
-
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        float kv[4], vv[4], qv[4], ov[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kv[i] = Ks[(ty * 4 + i) * DS + d];
-          vv[i] = Vs[(ty * 4 + i) * DS + d];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          qv[j] = Qs[(tx + 16 * j) * DS + d];
-          ov[j] = dOs[(tx + 16 * j) * DS + d];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-            dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = k0 + ty * 4 + i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = tx + 16 * j, row = q0 + c;
-          const bool ok = row < S && key < S && (!causal || key <= row);
-          const float p = ok ? expf(s[i][j] * scale - Ls[c]) : 0.f;
-          Pt[(ty * 4 + i) * PS + c] = p;
-          dSt[(ty * 4 + i) * PS + c] = p * (dp[i][j] - Dv[c]);
-        }
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int qq = 0; qq < BQ; ++qq) {
-        float pv[4], dsv[4], ov[DJ], qv[DJ];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pv[i] = Pt[(ty * 4 + i) * PS + qq];
-          dsv[i] = dSt[(ty * 4 + i) * PS + qq];
-        }
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          ov[j] = dOs[qq * DS + tx + 16 * j];
-          qv[j] = Qs[qq * DS + tx + 16 * j];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < DJ; ++j) {
-            adv[i][j] = fmaf(pv[i], ov[j], adv[i][j]);
-            adk[i][j] = fmaf(dsv[i], qv[j], adk[i][j]);
-          }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty * 4 + i;
-    if (key >= S) continue;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const long long e = koff + static_cast<long long>(key) * D + tx + 16 * j;
-      dk[e] = from_f<T>(adk[i][j] * scale);
-      dv[e] = from_f<T>(adv[i][j]);
-    }
-  }
-}
-
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* o, const void* lse,
-           const void* dout, void* dvec, void* dq, void* dk, void* dv, int B, int H, int HKV,
-           int S, float scale, int causal, void* stream) {
-  using L = Smem<D>;
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         L::DQ_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, L::DKV_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const long long rows = static_cast<long long>(B) * H * S;
-  flash_bwd_dvec_kernel<T><<<(unsigned)((rows + THREADS / 32 - 1) / (THREADS / 32)), THREADS,
-                             0, st>>>((const T*)o, (const T*)dout, (float*)dvec, rows, D);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int nb = (S + BQ - 1) / BQ;
-  flash_bwd_dq_kernel<T, D><<<dim3(nb, H, B), THREADS, L::DQ_BYTES, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
-      (const float*)dvec, (T*)dq, H, HKV, S, scale, causal);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkdv_kernel<T, D><<<dim3(nb, HKV, B), THREADS, L::DKV_BYTES, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
-      (const float*)dvec, (T*)dk, (T*)dv, H, HKV, S, scale, causal);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const void* o, const void* lse,
-             const void* dout, void* dvec, void* dq, void* dk, void* dv, int B, int H, int HKV,
-             int S, int D, float scale, int causal, void* stream) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, lse, dout, dvec, dq, dk, dv, B, H, HKV, S, scale,
-                           causal, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, lse, dout, dvec, dq, dk, dv, B, H, HKV, S, scale,
-                           causal, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, lse, dout, dvec, dq, dk, dv, B, H, HKV, S, scale,
-                            causal, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace bwd
 
 // ---------------------------------------------------------------------------
 // bfloat16 backward on the tensor cores
@@ -1598,11 +1311,22 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// 4 floats times s, stored as bf16 or float32.
+__device__ __forceinline__ void store4(bf16* p, float4 x, float s) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(pack_bf16(x.x * s, x.y * s), pack_bf16(x.z * s, x.w * s));
+}
+__device__ __forceinline__ void store4(float* p, float4 x, float s) {
+  *reinterpret_cast<float4*>(p) = make_float4(x.x * s, x.y * s, x.z * s, x.w * s);
+}
+
 // dk[b, hk] = scale * sum over g of dkp[b, hk * group + g], dv likewise
-// (no scale), in head order: 4 elements a thread.
+// (no scale), in head order, stored as T (bf16 or float32): 4 elements a
+// thread.
+template <typename T>
 __global__ void __launch_bounds__(256)
 flash_bwd_dkdv_sum_kernel(const float* __restrict__ dkp, const float* __restrict__ dvp,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv, long long head_elems,
+                          T* __restrict__ dk, T* __restrict__ dv, long long head_elems,
                           long long total, int group, float scale) {
   const long long e = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
   if (e >= total) return;
@@ -1615,9 +1339,8 @@ flash_bwd_dkdv_sum_kernel(const float* __restrict__ dkp, const float* __restrict
     sk.x += a.x; sk.y += a.y; sk.z += a.z; sk.w += a.w;
     sv.x += c.x; sv.y += c.y; sv.z += c.z; sv.w += c.w;
   }
-  *reinterpret_cast<uint2*>(dk + e) =
-      make_uint2(pack_bf16(sk.x * scale, sk.y * scale), pack_bf16(sk.z * scale, sk.w * scale));
-  *reinterpret_cast<uint2*>(dv + e) = make_uint2(pack_bf16(sv.x, sv.y), pack_bf16(sv.z, sv.w));
+  store4(dk + e, sk, scale);
+  store4(dv + e, sv, 1.f);
 }
 
 template <int D, int MINB, bool REGS>
@@ -1647,7 +1370,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
   err = cudaGetLastError();
   if (err != cudaSuccess || !partial) return (int)err;
   const long long head = static_cast<long long>(S) * D, total = head * B * HKV;
-  flash_bwd_dkdv_sum_kernel<<<(unsigned)((total / 4 + 255) / 256), 256, 0, st>>>(
+  flash_bwd_dkdv_sum_kernel<bf16><<<(unsigned)((total / 4 + 255) / 256), 256, 0, st>>>(
       (const float*)dkp, (const float*)dvp, (bf16*)dk, (bf16*)dv, head, total, H / HKV, scale);
   return (int)cudaGetLastError();
 }
@@ -1673,6 +1396,588 @@ int dispatch_bwd(const void* q, const void* k, const void* v, const void* o, con
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// float32 backward on the tensor cores: three-pass TF32
+
+namespace f32bwd {
+
+using f32::ARows;
+using f32::mm_nt;
+using f32::mma3;
+using f32::split;
+using f32::THREADS;
+using tc::cp_async4;
+using tc::cp_async_commit;
+using tc::cp_async_wait;
+using tc::ex2;
+using tc::LOG2E;
+using tc::smem_addr;
+
+constexpr int BR = 64;  // rows a block owns: queries (dQ) or keys (dK/dV), 16 a warp
+
+// Whether each streamed tile is split once into hi and lo tiles as it
+// lands (by the threads that copied it), or split by every warp at each
+// use (D = 128: the two halves would leave one block an SM).
+template <int D>
+__host__ __device__ constexpr bool presplit() {
+  return D <= 64;
+}
+// Whether a dK/dV block computes both (D <= 64), or the grid holds a dV
+// block and a dK block for each key block (D = 128: the dK and dV
+// accumulators alone would take 128 registers a thread; each block
+// computes S^T again, 5 products for 4, in twice the blocks).
+template <int D>
+__host__ __device__ constexpr bool split_dkdv() {
+  return D == 128;
+}
+template <int D>
+__host__ __device__ constexpr int tile() {  // rows of a streamed tile: keys (dQ), queries (dK/dV)
+  return D == 128 ? 16 : D == 64 ? 32 : 64;
+}
+template <int D>
+__host__ __device__ constexpr int nc() {  // columns of S (and dP) a step
+  return D == 128 ? 16 : 32;
+}
+// Floats from a streamed hi tile to its lo tile, with G warp groups (a
+// streamed tile of G tile<D>() rows).
+template <int D, int G>
+__host__ __device__ constexpr int lo_offset() {
+  return presplit<D>() ? 4 * G * tile<D>() * D : 0;
+}
+template <int D, int G>
+__host__ __device__ constexpr int smem_bytes() {
+  // two 64-row tiles held, two two-stage rings (and their lo halves), the
+  // dK/dV kernel's lse and Dvec ring
+  return (2 * BR * D + 4 * G * tile<D>() * D + lo_offset<D, G>() + 4 * G * tile<D>()) * 4;
+}
+
+// Splits this thread's chunks of a tile that it copied with
+// f32::load_rows<ROWS, D, D, true, NT> (once they have landed): hi in
+// place, lo LO floats further.
+template <int ROWS, int D, int LO, int NT>
+__device__ __forceinline__ void split_rows(float* tile, int tid) {
+  constexpr int CH = D / 4, STEP = NT / CH;
+  const int r = tid / CH, ch = tid % CH;
+#pragma unroll
+  for (int i = 0; i < ROWS / STEP; ++i) {
+    const int rr = r + i * STEP;
+    float* p = tile + rr * D + ((ch ^ (rr & 7)) << 2);
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    unsigned h[4], l[4];
+    split(__float_as_uint(x.x), h[0], l[0]);
+    split(__float_as_uint(x.y), h[1], l[1]);
+    split(__float_as_uint(x.z), h[2], l[2]);
+    split(__float_as_uint(x.w), h[3], l[3]);
+    *reinterpret_cast<uint4*>(p) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(p + LO) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// This lane's float offsets, in a swizzled tile of rows of D floats, of its
+// elements (row 2t, column 8m + g) and (row 2t + 1, column 8m + g), m < 4:
+// the B fragment of A times the tile's rows, k index t standing for row
+// 2t and t + 4 for row 2t + 1 (see mm_nn). Chunk 2m + g / 4 of row 2t is
+// stored at (2m + g / 4) ^ 2t, so the 32 lanes hit 32 banks; column tile
+// n is at x[n % 4] + 32 (n / 4), the XOR with 8n touching only the bits
+// below 32 (an immediate offset from 4 registers, not D / 8).
+template <int D>
+struct BCols {
+  int x0[4], x1[4];
+  __device__ __forceinline__ explicit BCols(int lane) {
+    const int g = lane >> 2, t = lane & 3;
+    const int x = 2 * t * D + ((((g >> 2) ^ (2 * t)) << 2) | (g & 3));
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      x0[m] = x ^ (8 * m);
+      x1[m] = D + (x ^ 4 ^ (8 * m));
+    }
+  }
+};
+
+// The hi and lo parts of the float at p: split (LO 0), or read from a tile
+// split once (see f32::b_frags).
+template <int LO>
+__device__ __forceinline__ void b_elem(const float* p, unsigned& h, unsigned& l) {
+  if constexpr (LO != 0) {
+    h = __float_as_uint(p[0]);
+    l = __float_as_uint(p[LO]);
+  } else {
+    split(__float_as_uint(p[0]), h, l);
+  }
+}
+
+// acc (16 x D) += A (16 x NC: the hi and lo A fragments of NC / 8 k8 steps,
+// k index t of step j standing for row 8j + 2t and t + 4 for 8j + 2t + 1)
+// times rows [0, NC) of a swizzled tile, each column tile's product summed
+// from zero and added with one add. rows: the tile's first row; LO: see
+// b_elem.
+template <int D, int NC, int LO>
+__device__ __forceinline__ void mm_nn(float (&acc)[D / 8][4], const unsigned (&ah)[NC / 8][4],
+                                      const unsigned (&al)[NC / 8][4], const float* rows,
+                                      const BCols<D>& x) {
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NC / 8; ++j) {
+      const float* r = rows + 8 * j * D + 32 * (n / 4);
+      unsigned bh0, bl0, bh1, bl1;
+      b_elem<LO>(r + x.x0[n % 4], bh0, bl0);  // b0: row 2t
+      b_elem<LO>(r + x.x1[n % 4], bh1, bl1);  // b1: row 2t + 1
+      mma3(c, ah[j], al[j], bh0, bh1, bl0, bl1);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += c[e];
+  }
+}
+
+// The C fragments of 16 x NC as split A fragments of NC / 8 k8 steps, with
+// no shuffle: k8 step j is columns 8j + 2t (k t) and 8j + 2t + 1 (k t + 4),
+// so c0, c1, c2, c3 of c[j] are a0, a2, a1, a3.
+template <int NC>
+__device__ __forceinline__ void to_afrags(unsigned (&h)[NC / 8][4], unsigned (&l)[NC / 8][4],
+                                          const float (&c)[NC / 8][4]) {
+#pragma unroll
+  for (int j = 0; j < NC / 8; ++j) {
+    split(__float_as_uint(c[j][0]), h[j][0], l[j][0]);  // a0: row g, column 2t
+    split(__float_as_uint(c[j][2]), h[j][1], l[j][1]);  // a1: row g + 8, column 2t
+    split(__float_as_uint(c[j][1]), h[j][2], l[j][2]);  // a2: row g, column 2t + 1
+    split(__float_as_uint(c[j][3]), h[j][3], l[j][3]);  // a3: row g + 8, column 2t + 1
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void zero(float (&acc)[D / 8][4]) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+}
+
+// This lane's ldsm_offset for B fragments read as they lie (the forward's klane).
+template <int D>
+__device__ __forceinline__ unsigned blane_of(int lane) {
+  return f32::ldsm_offset<D>((lane & 7) + ((lane >> 4) << 3), (lane >> 3) & 1);
+}
+
+// Merges the G warp groups' accumulators of a block into group 0's, in
+// group order, through shared memory `red` (free: no copy in flight, the
+// last tile consumed). Thread-major, so the 32 lanes hit 32 banks.
+template <int G, int N>
+__device__ __forceinline__ void merge_groups(float (&acc)[N][4], float* red, int tid) {
+  if constexpr (G > 1) {
+    const int grp = tid / THREADS, tg = tid % THREADS;
+    __syncthreads();  // every warp is done with the ring
+#pragma unroll
+    for (int gi = 1; gi < G; ++gi) {
+      if (grp == gi) {
+#pragma unroll
+        for (int j = 0; j < N; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) red[(j * 4 + e) * THREADS + tg] = acc[j][e];
+      }
+      __syncthreads();
+      if (grp == 0) {
+#pragma unroll
+        for (int j = 0; j < N; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][e] += red[(j * 4 + e) * THREADS + tg];
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// One block per (head, batch, q block): dQ of 64 rows, and Dvec of them.
+// G warp groups of 4 warps (16 rows each) take alternate tiles of T keys:
+// tiles of G T keys stream through the ring, group g the g-th T rows.
+template <int D, int MINB, bool REGS, int G>
+__global__ void __launch_bounds__(THREADS * G, MINB)
+flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ o,
+                        const float* __restrict__ dout, const float* __restrict__ lse,
+                        float* __restrict__ dvec, float* __restrict__ dq, int H, int HKV, int S,
+                        float scale, int causal) {
+  constexpr int T = tile<D>(), NC = nc<D>(), DT = D / 8, NT = THREADS * G;
+  constexpr int TK = G * T, TILE = TK * D, LO = lo_offset<D, G>();
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  float* dOs = Qs + BR * D;
+  float* Ks = dOs + BR * D;   // two stages (their lo halves LO floats on)
+  float* Vs = Ks + 2 * TILE;  // two stages
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qb = gridDim.z - 1 - blockIdx.z;  // heaviest (causal) first
+  const int hk = h / (H / HKV);
+  const int q0 = qb * BR;
+  const long long rows = (static_cast<long long>(b) * H + h) * S;
+  const long long qoff = rows * D;
+  const long long koff = (static_cast<long long>(b) * HKV + hk) * S * D;
+  const float* kp = k + koff;
+  const float* vp = v + koff;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = warp >> 2, wr = warp & 3;  // warp group; the warp's rows in the block
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + wr * 16;
+  const int kend = causal ? min(S, q0 + BR) : S;
+  const int nkb = (kend + TK - 1) / TK;
+  const float scale_log2 = scale * LOG2E;
+
+  f32::load_rows<BR, D, D, true, NT>(Qs, q + qoff, q0, S, tid);
+  f32::load_rows<BR, D, D, true, NT>(dOs, dout + qoff, q0, S, tid);
+  f32::load_rows<TK, D, D, true, NT>(Ks, kp, 0, S, tid);
+  f32::load_rows<TK, D, D, true, NT>(Vs, vp, 0, S, tid);
+  cp_async_commit();
+
+  // Dvec and lse (log2 units) of rows g and g + 8: lane t of the quad
+  // sums a quarter of the row, then two shuffles (0 past S).
+  float dv[2], lse2[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + g + 8 * i;
+    float sum = 0.f;
+    if (row < S) {
+      const long long at = qoff + static_cast<long long>(row) * D + t * (D / 4);
+      const float4* op = reinterpret_cast<const float4*>(o + at);
+      const float4* dp = reinterpret_cast<const float4*>(dout + at);
+#pragma unroll
+      for (int c = 0; c < D / 16; ++c) {
+        const float4 x = op[c], y = dp[c];
+        sum = fmaf(x.x, y.x, sum);
+        sum = fmaf(x.y, y.y, sum);
+        sum = fmaf(x.z, y.z, sum);
+        sum = fmaf(x.w, y.w, sum);
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    dv[i] = sum;
+    lse2[i] = row < S ? lse[rows + row] * LOG2E : 0.f;
+    if (grp == 0 && t == 0 && row < S) dvec[rows + row] = sum;
+  }
+
+  const unsigned ks = smem_addr(Ks), vs = smem_addr(Vs);
+  const unsigned blane = blane_of<D>(lane);
+  const BCols<D> x(lane);
+  ARows<D, REGS> qa, da;
+  float acc[DT][4];
+  zero<D>(acc);
+
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int st = kb & 1, k0 = kb * TK + grp * T;  // this group's first key
+    cp_async_wait<0>();  // tile kb has landed
+    if constexpr (LO != 0) {
+      split_rows<TK, D, LO, NT>(Ks + st * TILE, tid);
+      split_rows<TK, D, LO, NT>(Vs + st * TILE, tid);
+    }
+    __syncthreads();  // ... for every thread, and tile kb - 1 is consumed
+    if (kb == 0) {
+      qa.load(smem_addr(Qs), wr, lane);
+      da.load(smem_addr(dOs), wr, lane);
+    }
+    if (kb + 1 < nkb) {  // tile kb + 1 into the stage of tile kb - 1
+      f32::load_rows<TK, D, D, true, NT>(Ks + (st ^ 1) * TILE, kp, (kb + 1) * TK, S, tid);
+      f32::load_rows<TK, D, D, true, NT>(Vs + (st ^ 1) * TILE, vp, (kb + 1) * TK, S, tid);
+      cp_async_commit();
+    }
+    if (k0 >= kend) continue;  // the group's keys are all past the block's
+    const int r0 = st * TK + grp * T;  // the group's first row in the ring
+#pragma unroll
+    for (int c0 = 0; c0 < T; c0 += NC) {
+      if (causal && k0 + c0 > row0 + 15) break;  // every key above the warp's diagonal
+      const unsigned at = (r0 + c0) * D * 4;
+      float s[NC / 8][4], dp[NC / 8][4];
+      mm_nt<D, NC, REGS, LO>(s, qa, ks + at, blane);   // S
+      mm_nt<D, NC, REGS, LO>(dp, da, vs + at, blane);  // dP
+      const bool edge = k0 + c0 + NC > S || (causal && k0 + c0 + NC - 1 > row0);
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          float p = ex2(fmaf(s[j][e], scale_log2, -lse2[i]));
+          if (edge) {
+            const int col = k0 + c0 + j * 8 + 2 * t + (e & 1), row = row0 + g + 8 * i;
+            if (col >= S || (causal && col > row)) p = 0.f;
+          }
+          s[j][e] = p * (dp[j][e] - dv[i]);  // dS
+        }
+      unsigned ah[NC / 8][4], al[NC / 8][4];
+      to_afrags<NC>(ah, al, s);
+      mm_nn<D, NC, LO>(acc, ah, al, Ks + (r0 + c0) * D, x);  // dQ += dS K
+    }
+  }
+  merge_groups<G>(acc, Ks, tid);
+  if (grp != 0) return;
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + g + 8 * i;
+    if (row >= S) continue;
+    float* qrow = dq + qoff + static_cast<long long>(row) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+      *reinterpret_cast<float2*>(qrow + j * 8) =
+          make_float2(acc[j][2 * i] * scale, acc[j][2 * i + 1] * scale);
+  }
+}
+
+// One block per (query head, batch, key block): dK and dV of 64 keys from
+// one query head, or (split_dkdv) one of the two, by the parity of
+// blockIdx.z. G warp groups of 4 warps (16 keys each) take alternate
+// tiles of T queries, as in the dQ kernel. PARTIAL: float32 partials of
+// the head (B, H, S, D), unscaled, for flash_bwd_dkdv_sum_kernel; else
+// dK and dV (a group of 1).
+template <int D, int MINB, bool REGS, bool PARTIAL, int G>
+__global__ void __launch_bounds__(THREADS * G, MINB)
+flash_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ dvec,
+                          float* __restrict__ dk, float* __restrict__ dv, int H, int HKV, int S,
+                          float scale, int causal) {
+  constexpr int T = tile<D>(), NC = nc<D>(), DT = D / 8, NT = THREADS * G;
+  constexpr int TQ = G * T, TILE = TQ * D, LO = lo_offset<D, G>();
+  constexpr bool SPLIT = split_dkdv<D>();
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* Ks = reinterpret_cast<float*>(smem_raw);
+  float* Vs = Ks + BR * D;
+  float* Qs = Vs + BR * D;          // two stages (their lo halves LO floats on)
+  float* dOs = Qs + 2 * TILE;       // two stages
+  float* Ls = dOs + 2 * TILE + LO;  // two stages of TQ
+  float* Dv = Ls + 2 * TQ;          // two stages of TQ
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  // The first key blocks see the most q tiles (causal).
+  const int kb = SPLIT ? blockIdx.z >> 1 : blockIdx.z;
+  const bool want_dk = !SPLIT || (blockIdx.z & 1), want_dv = !SPLIT || !(blockIdx.z & 1);
+  const int hk = h / (H / HKV);
+  const int k0 = kb * BR;
+  const long long rows = (static_cast<long long>(b) * H + h) * S;
+  const long long koff = (static_cast<long long>(b) * HKV + hk) * S * D;
+  const float* qp = q + rows * D;
+  const float* dp_ = dout + rows * D;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = warp >> 2, wr = warp & 3;  // warp group; the warp's keys in the block
+  const int g = lane >> 2, t = lane & 3;
+  const int key0 = k0 + wr * 16;  // the warp's first key
+  const int nqb = (S + TQ - 1) / TQ;
+  const int qstart = causal ? k0 / TQ : 0;
+  const float scale_log2 = scale * LOG2E;
+
+  // q tile qb and its lse and Dvec into stage st (0 past S).
+  auto load_q = [&](int qb, int st) {
+    f32::load_rows<TQ, D, D, true, NT>(Qs + st * TILE, qp, qb * TQ, S, tid);
+    f32::load_rows<TQ, D, D, true, NT>(dOs + st * TILE, dp_, qb * TQ, S, tid);
+    if (tid < 2 * TQ) {
+      const int r = tid % TQ, row = qb * TQ + r;
+      const float* src = (tid < TQ ? lse : dvec) + rows;
+      float* dst = (tid < TQ ? Ls : Dv) + st * TQ + r;
+      cp_async4(dst, row < S ? src + row : src, row < S ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+  f32::load_rows<BR, D, D, true, NT>(Ks, k + koff, k0, S, tid);
+  f32::load_rows<BR, D, D, true, NT>(Vs, v + koff, k0, S, tid);
+  load_q(qstart, 0);
+
+  const unsigned qs = smem_addr(Qs), ds = smem_addr(dOs);
+  const unsigned blane = blane_of<D>(lane);
+  const BCols<D> x(lane);
+  ARows<D, REGS> ka, va;
+  // dV then dK; split: the one of this block.
+  constexpr int NACC = SPLIT ? 1 : 2;
+  float acc[NACC][DT][4];
+#pragma unroll
+  for (int a = 0; a < NACC; ++a) zero<D>(acc[a]);
+
+  for (int qb = qstart; qb < nqb; ++qb) {
+    const int st = (qb - qstart) & 1, q0 = qb * TQ + grp * T;  // this group's first query
+    cp_async_wait<0>();  // tile qb (and K, V) has landed
+    if constexpr (LO != 0) {
+      split_rows<TQ, D, LO, NT>(Qs + st * TILE, tid);
+      split_rows<TQ, D, LO, NT>(dOs + st * TILE, tid);
+    }
+    __syncthreads();  // ... for every thread, and tile qb - 1 is consumed
+    if (qb == qstart) {
+      ka.load(smem_addr(Ks), wr, lane);
+      va.load(smem_addr(Vs), wr, lane);
+    }
+    if (qb + 1 < nqb) load_q(qb + 1, st ^ 1);
+    if (q0 >= S) continue;  // the group's queries are all past S
+    const int r0 = st * TQ + grp * T;  // the group's first row in the ring
+    const float* ls = Ls + r0;
+    const float* dvs = Dv + r0;
+#pragma unroll
+    for (int c0 = 0; c0 < T; c0 += NC) {
+      if (causal && q0 + c0 + NC - 1 < key0) continue;  // every query before the warp's keys
+      const unsigned at = (r0 + c0) * D * 4;
+      float s[NC / 8][4], dpt[NC / 8][4];
+      mm_nt<D, NC, REGS, LO>(s, ka, qs + at, blane);                   // S^T
+      if (want_dk) mm_nt<D, NC, REGS, LO>(dpt, va, ds + at, blane);  // dP^T
+      const bool edge = q0 + c0 + NC > S || (causal && q0 + c0 < key0 + 15);
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j) {
+        const int c = c0 + j * 8 + 2 * t;  // this lane's two query columns c, c + 1
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + c);
+        const float2 d2 = *reinterpret_cast<const float2*>(dvs + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lq = (e & 1) ? l2.y : l2.x, dq_ = (e & 1) ? d2.y : d2.x;
+          float p = ex2(fmaf(s[j][e], scale_log2, -lq * LOG2E));
+          if (edge) {
+            const int col = q0 + c + (e & 1), key = key0 + g + 8 * (e >> 1);
+            if (col >= S || (causal && col < key)) p = 0.f;
+          }
+          s[j][e] = p;                                      // P^T
+          if (want_dk) dpt[j][e] = p * (dpt[j][e] - dq_);  // dS^T
+        }
+      }
+      unsigned ah[NC / 8][4], al[NC / 8][4];
+      if (want_dv) {
+        to_afrags<NC>(ah, al, s);
+        mm_nn<D, NC, LO>(acc[0], ah, al, dOs + (r0 + c0) * D, x);  // dV += P^T dO
+      }
+      if (want_dk) {
+        to_afrags<NC>(ah, al, dpt);
+        mm_nn<D, NC, LO>(acc[NACC - 1], ah, al, Qs + (r0 + c0) * D, x);  // dK += dS^T Q
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < NACC; ++a) merge_groups<G>(acc[a], Qs, tid);
+  if (grp != 0) return;
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + g + 8 * i;
+    if (key >= S) continue;
+    const long long e = (PARTIAL ? rows * D : koff) + static_cast<long long>(key) * D + 2 * t;
+    const float sk = PARTIAL ? 1.f : scale;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      if (want_dv)
+        *reinterpret_cast<float2*>(dv + e + j * 8) =
+            make_float2(acc[0][j][2 * i], acc[0][j][2 * i + 1]);
+      if (want_dk)
+        *reinterpret_cast<float2*>(dk + e + j * 8) =
+            make_float2(acc[NACC - 1][j][2 * i] * sk, acc[NACC - 1][j][2 * i + 1] * sk);
+    }
+  }
+}
+
+// Per device (bit `dev`): whether the kernels' dynamic shared memory
+// attribute is set, and the device's SM count.
+struct DeviceState {
+  std::atomic<unsigned long long> ready{0};
+  int sms[64] = {};
+};
+
+// Sets the dynamic shared memory attribute of the kernels for G warp groups.
+template <int D, int MINB, bool REGS, int G>
+int prepare() {
+  const void* fns[] = {(const void*)flash_bwd_dq_f32_kernel<D, MINB, REGS, G>,
+                       (const void*)flash_bwd_dkdv_f32_kernel<D, MINB, REGS, true, G>,
+                       (const void*)flash_bwd_dkdv_f32_kernel<D, MINB, REGS, false, G>};
+  for (const void* fn : fns) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D, G>());
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+template <int D, int MINB, bool REGS, int G>
+int launch_dq(dim3 grid, cudaStream_t st, const void* q, const void* k, const void* v,
+              const void* o, const void* lse, const void* dout, void* dvec, void* dq, int H,
+              int HKV, int S, float scale, int causal) {
+  flash_bwd_dq_f32_kernel<D, MINB, REGS, G><<<grid, THREADS * G, smem_bytes<D, G>(), st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)o, (const float*)dout,
+      (const float*)lse, (float*)dvec, (float*)dq, H, HKV, S, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <int D, int MINB, bool REGS, int G>
+int launch_dkdv(dim3 grid, cudaStream_t st, bool partial, const void* q, const void* k,
+                const void* v, const void* dout, const void* lse, const void* dvec, void* dk,
+                void* dv, int H, int HKV, int S, float scale, int causal) {
+  auto kernel = partial ? flash_bwd_dkdv_f32_kernel<D, MINB, REGS, true, G>
+                        : flash_bwd_dkdv_f32_kernel<D, MINB, REGS, false, G>;
+  kernel<<<grid, THREADS * G, smem_bytes<D, G>(), st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, (const float*)lse,
+      (const float*)dvec, (float*)dk, (float*)dv, H, HKV, S, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+// Two warp groups a block where the grid has at most two blocks an SM
+// (the training path's shapes: each block's chain of tiles halves; on an
+// H100 7b's kernels took 0.0395 ms for 0.0416, 10 (b)'s 0.0785 for 0.0950),
+// else one (4x32x1024x64 took 1.1262 ms with two for 1.0203).
+template <int D, int MINB, bool REGS>
+int launch(const void* q, const void* k, const void* v, const void* o, const void* lse,
+           const void* dout, void* dvec, void* dq, void* dk, void* dv, void* dkp, void* dvp,
+           int B, int H, int HKV, int S, float scale, int causal, void* stream) {
+  static DeviceState state;
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool partial = H != HKV;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (!(state.ready.load(std::memory_order_acquire) & bit)) {
+    int sms = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    int e = prepare<D, MINB, REGS, 1>();
+    if (e == 0) e = prepare<D, 1, REGS, 2>();
+    if (e != 0) return e;
+    if (dev < 64) state.sms[dev] = sms;
+    state.ready.fetch_or(bit, std::memory_order_release);
+  }
+  const long long sms = dev < 64 ? state.sms[dev] : 0;
+  const dim3 grid(H, B, (S + BR - 1) / BR);
+  const dim3 kv_grid(H, B, grid.z * (split_dkdv<D>() ? 2 : 1));
+  const bool two_q = 1ll * grid.x * grid.y * grid.z <= 2 * sms;
+  const bool two_kv = 1ll * kv_grid.x * kv_grid.y * kv_grid.z <= 2 * sms;
+  int e = two_q ? launch_dq<D, 1, REGS, 2>(grid, st, q, k, v, o, lse, dout, dvec, dq, H, HKV,
+                                           S, scale, causal)
+                : launch_dq<D, MINB, REGS, 1>(grid, st, q, k, v, o, lse, dout, dvec, dq, H, HKV,
+                                              S, scale, causal);
+  if (e != 0) return e;
+  void* dkt = partial ? dkp : dk;
+  void* dvt = partial ? dvp : dv;
+  e = two_kv ? launch_dkdv<D, 1, REGS, 2>(kv_grid, st, partial, q, k, v, dout, lse, dvec, dkt,
+                                          dvt, H, HKV, S, scale, causal)
+             : launch_dkdv<D, MINB, REGS, 1>(kv_grid, st, partial, q, k, v, dout, lse, dvec,
+                                             dkt, dvt, H, HKV, S, scale, causal);
+  if (e != 0 || !partial) return e;
+  const long long head = static_cast<long long>(S) * D, total = head * B * HKV;
+  tc::flash_bwd_dkdv_sum_kernel<float><<<(unsigned)((total / 4 + 255) / 256), 256, 0, st>>>(
+      (const float*)dkp, (const float*)dvp, (float*)dk, (float*)dv, head, total, H / HKV, scale);
+  return (int)cudaGetLastError();
+}
+
+// Blocks per SM (one warp group a block) and whether the A operands stay
+// in registers, by head dim (D >= 64: read from shared memory and split at
+// each use).
+int dispatch(const void* q, const void* k, const void* v, const void* o, const void* lse,
+             const void* dout, void* dvec, void* dq, void* dk, void* dv, void* dkp, void* dvp,
+             int B, int H, int HKV, int S, int D, float scale, int causal, void* stream) {
+  switch (D) {
+    case 32:
+      return launch<32, 2, true>(q, k, v, o, lse, dout, dvec, dq, dk, dv, dkp, dvp, B, H, HKV,
+                                 S, scale, causal, stream);
+    case 64:
+      return launch<64, 2, false>(q, k, v, o, lse, dout, dvec, dq, dk, dv, dkp, dvp, B, H, HKV,
+                                  S, scale, causal, stream);
+    case 128:
+      return launch<128, 2, false>(q, k, v, o, lse, dout, dvec, dq, dk, dv, dkp, dvp, B, H,
+                                   HKV, S, scale, causal, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace f32bwd
+
 }  // namespace
 
 // q (B, H, S, D), k/v (B, HKV, S, D), o (B, H, S, D), contiguous; D in
@@ -1691,17 +1996,17 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
 }
 
 // Backward: q, o, dout, dq (B, H, S, D); k, v, dk, dv (B, HKV, S, D); lse
-// (B, H, S) float32 from the forward; dvec (B, H, S) float32 scratch. All
-// contiguous, of one type but lse and dvec. bf16 also takes dkp, dvp:
-// float32 (B, H, S, D) scratch when H > HKV, else null; its pointers are
+// (B, H, S) float32 from the forward; dvec (B, H, S) float32 scratch; dkp,
+// dvp float32 (B, H, S, D) scratch when H > HKV, else null. All
+// contiguous, of one type but lse, dvec, dkp and dvp; the pointers
 // 16-byte aligned. Returns the CUDA error, or 0.
 extern "C" int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                                        const void* o, const void* lse, const void* dout,
-                                       void* dvec, void* dq, void* dk, void* dv, int B, int H,
-                                       int HKV, int S, int D, float scale, int causal,
-                                       void* stream) {
-  return bwd::dispatch<float>(q, k, v, o, lse, dout, dvec, dq, dk, dv, B, H, HKV, S, D,
-                              scale, causal, stream);
+                                       void* dvec, void* dq, void* dk, void* dv, void* dkp,
+                                       void* dvp, int B, int H, int HKV, int S, int D,
+                                       float scale, int causal, void* stream) {
+  return f32bwd::dispatch(q, k, v, o, lse, dout, dvec, dq, dk, dv, dkp, dvp, B, H, HKV, S, D,
+                          scale, causal, stream);
 }
 
 extern "C" int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,

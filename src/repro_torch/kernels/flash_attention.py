@@ -32,8 +32,7 @@ bwd_launches = 0
 HEAD_DIMS = (32, 64, 128)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
-_BWD_ARGTYPES = {torch.float32: [_P] * 10 + [_I] * 5 + [ctypes.c_float, _I, _P],
-                 torch.bfloat16: [_P] * 12 + [_I] * 5 + [ctypes.c_float, _I, _P]}
+_BWD_ARGTYPES = [_P] * 12 + [_I] * 5 + [ctypes.c_float, _I, _P]
 _FNS = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
 
 
@@ -95,11 +94,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def bwd_kernels(dtype: torch.dtype, group: int) -> int:
-    """Kernels one backward call launches: float32 three (row sums, dQ,
-    dK/dV); bfloat16 two (dQ with the row sums, dK/dV), and a third that
-    sums the float32 partials of a query group when ``group`` > 1."""
-    if dtype == torch.float32:
-        return 3
+    """Kernels one backward call launches, float32 or bfloat16: two (dQ
+    with the row sums, dK/dV), and a third that sums the float32 partials
+    of a query group when ``group`` > 1."""
     return 2 if group == 1 else 3
 
 
@@ -110,9 +107,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     given its float32 row log-sum-exp ``lse`` (B, H, S) and the output's
     gradient ``dout``, each in its input's type; dk and dv sum over the
     query heads that share a KV head. Same layout rules as the forward;
-    a non-contiguous ``dout`` is copied. In bfloat16 with more than one
-    query head per KV head, two float32 (B, H, S, D) scratch tensors
-    hold each head's dK and dV partials."""
+    a non-contiguous ``dout`` is copied. With more than one query head
+    per KV head, two float32 (B, H, S, D) scratch tensors hold each
+    head's dK and dV partials. float32 runs three-pass TF32 on the tensor
+    cores, bfloat16 bf16 products; both accumulate in float32."""
     global bwd_launches
     dout = dout.contiguous()
     _check(q, k, v, out, dout)
@@ -125,13 +123,13 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq, dk.zero_(), dv.zero_()
     hkv = k.shape[1]
     dvec = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    ptrs = [q, k, v, out, lse, dout, dvec, dq, dk, dv]
-    if q.dtype == torch.bfloat16:  # float32 dK, dV partials per query head, summed by group
-        ptrs += [torch.empty(q.shape, dtype=torch.float32, device=q.device) if h != hkv
-                 else None for _ in range(2)]
+    # float32 dK, dV partials per query head, summed by group
+    partials = [torch.empty(q.shape, dtype=torch.float32, device=q.device) if h != hkv
+                else None for _ in range(2)]
+    ptrs = [q, k, v, out, lse, dout, dvec, dq, dk, dv, *partials]
     fn = getattr(_build.load("flash_attention"), "flash_attention_bwd_"
                  + ("f32" if q.dtype == torch.float32 else "bf16"))
-    fn.argtypes, fn.restype = _BWD_ARGTYPES[q.dtype], ctypes.c_int
+    fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(*(None if t is None else t.data_ptr() for t in ptrs), b, h, hkv, s, d,

@@ -728,7 +728,9 @@ def test_cuda_smoke_model_matches_cpu_float32(arch):
 # (one ulp, 2**-7 of the row's largest, apart) and the kernel rounds P and
 # dS to bfloat16 before its products (under 2**-7 more: derived and
 # measured in tests/test_torch_flash_bwd_numerics.py), so the bar is two
-# ulps; float32 differs by summation order only.
+# ulps; float32 differs by summation order and the three TF32 passes (each
+# product within about 2**-22 of float32's; modelled in
+# tests/test_torch_flash_bwd_f32_numerics.py).
 _BWD_FRAC = {torch.float32: 2.0 ** -12, torch.bfloat16: 2.0 ** -6}
 # The bf16 forward's lse sums P rounded to bfloat16 (each term within
 # 2**-9), so it lies within 2**-9 of the plain one.
@@ -805,6 +807,32 @@ def test_cuda_flash_attention_backward_is_bit_equal_on_repeat(dtype, group):
     second = FA.flash_attention_bwd_cuda(*args, True)
     for g1, g2 in zip(first, second):
         assert torch.equal(g1, g2)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_flash_attention_backward_f32_long_against_exact(d):
+    """float32 at S=4096, causal, GQA: the gradients against those of exact
+    attention (float64 autograd on the card) at the float32 row bar. The
+    kernels sum dQ over up to 4,096 keys and dK, dV over up to 4,096
+    queries and two heads on the tensor cores, which truncate each sum: a
+    chain that grew with S would show here. The grid is small, so a block
+    runs two warp groups over alternate tiles: a repeat gives the same
+    bits."""
+
+    dev = _cuda()
+    b, h, hkv, s = 1, 4, 2, 4096
+    q, k, v, out, lse, dout = _flash_bwd_inputs(b, h, hkv, s, d, torch.float32, True, dev,
+                                                seed=d)
+    got = FA.flash_attention_bwd_cuda(q, k, v, out, lse, dout, True)
+    again = FA.flash_attention_bwd_cuda(q, k, v, out, lse, dout, True)
+    assert all(torch.equal(g1, g2) for g1, g2 in zip(got, again))
+    qd, kd, vd = (t.double().requires_grad_() for t in (q, k, v))
+    scores = qd @ kd.repeat_interleave(2, 1).transpose(-1, -2) / d ** 0.5
+    scores = scores.masked_fill(torch.ones(s, s, dtype=torch.bool, device=dev).triu(1),
+                                float("-inf"))
+    exact = torch.softmax(scores, -1) @ vd.repeat_interleave(2, 1)
+    want = torch.autograd.grad(exact, (qd, kd, vd), dout.double())
+    _assert_rows_close(got, want, _BWD_FRAC[torch.float32], "exact")
 
 
 def test_cuda_flash_attention_backward_takes_non_contiguous_dout():
