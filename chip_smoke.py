@@ -1449,37 +1449,6 @@ def per_op_times(tile) -> dict:
     return out
 
 
-def device_busy(tile, unprofiled_s: float) -> dict:
-    """``per_op_times`` of one tile under ``torch.profiler``: the sum of
-    device (CUDA) event durations against the host wall time of the same
-    op sequence without the profiler, and the kernels that take most."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        per_op_times(tile)
-        profiled_s = time.perf_counter() - t0
-    by_name: dict[str, float] = {}
-    n = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            n += 1
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e6
-    busy = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return dict(
-        device_events=n,
-        busy_s=busy,
-        profiled_wall_s=profiled_s,
-        unprofiled_wall_s=unprofiled_s,
-        idle_share=1.0 - busy / unprofiled_s if n else None,
-        top=[(name[:60], round(s, 6)) for name, s in top],
-    )
-
-
 # --------------------------------------------------------------------------
 # phase 6: the main path across OS processes
 # --------------------------------------------------------------------------
@@ -3043,11 +3012,6 @@ def phase_main_path(tiles) -> dict:
     log(f"  fused and unfused agree on all {len(tiles)} tiles (n_objects {n_obj})")
     ops = per_op_times(tiles[0])
     log("  per-op seconds, one tile: " + json.dumps({k: round(v, 6) for k, v in ops.items()}))
-    busy = device_busy(tiles[0], sum(ops.values()))
-    if busy["device_events"]:
-        log("  device busy, same op sequence: " + json.dumps(busy))
-    else:
-        log("  device busy: not measured (the profiler saw no device events)")
     return runs
 
 

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops as K
-from ._device import resolve_device, to_device, to_host
+from ._device import host_sync, resolve_device, to_device, to_host
 from .segmentation import MAX_OBJECTS
 
 __all__ = [
@@ -234,7 +234,7 @@ def _haralick_t(gray: torch.Tensor, fg: torch.Tensor) -> torch.Tensor:
         b = q[dy:, dx:].reshape(-1).long()
         m = (fg[: h - dy, : w - dx] & fg[dy:, dx:]).reshape(-1)
         pair = torch.where(m, a * L + b, L * L)
-        counts += torch.bincount(pair, minlength=L * L + 1)[: L * L]
+        counts += host_sync("bincount", torch.bincount, pair, minlength=L * L + 1)[: L * L]
     c = counts.reshape(L, L)
     glcm = (c + c.T).float()  # symmetric
     glcm = glcm / torch.clamp_min(glcm.sum(), 1e-9)

@@ -23,6 +23,10 @@ Host/device boundary
 * A ``gpu`` variant synchronises its device before it returns: the
   Worker times each call on the host clock (``lane.busy_seconds``, the
   PATS runtime estimate), which would otherwise see only the enqueue.
+* Every blocking read of the device by the host goes through
+  ``_device.host_sync``, a ``sync`` span where the op is traced; a
+  traced ``gpu`` op on the card also notes the caching allocator's
+  counts across it (``_device.alloc_counts``).
 
 Spawned workers
 ---------------
@@ -60,10 +64,11 @@ from ..core.calibration import (
 from ..core.variants import VariantRegistry, registry as global_registry
 from ..core.workflow import AbstractWorkflow, Operation, Stage
 from ..core.worker import OpContext
+from ..telemetry.lanes import current_op
 from ..kernels import ops as K
 from . import features as F
 from . import segmentation as S
-from ._device import resolve_device, to_device, to_host
+from ._device import alloc_counts, host_sync, resolve_device, to_device, to_host
 
 __all__ = [
     "build_workflow", "register_variants", "run_tile", "OP_IMPLS",
@@ -143,6 +148,7 @@ def _wrap(fn, to_host: bool = False, device: torch.device | None = None):
     gets ``device=`` and the device is synchronised before returning.
     """
     kw = {} if device is None else {"device": device}
+    cuda = device is not None and device.type == "cuda"
 
     def impl(ctx: OpContext):
         if not ctx.inputs:
@@ -153,9 +159,13 @@ def _wrap(fn, to_host: bool = False, device: torch.device | None = None):
             arg = {}
             for v in ctx.inputs.values():
                 arg.update(v)
+        op = current_op() if cuda else None
+        before = alloc_counts(device) if op is not None else None
         out = fn(_to_host(arg) if to_host else arg, **kw)
-        if device is not None and device.type == "cuda":
-            torch.cuda.synchronize(device)
+        if cuda:
+            host_sync("op_end", torch.cuda.synchronize, device)
+        if before is not None:
+            op.note(**{k: n - before[k] for k, n in alloc_counts(device).items()})
         return out
 
     return impl

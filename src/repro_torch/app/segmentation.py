@@ -17,8 +17,9 @@ State flows through the pipeline as a dict:
 The accelerated variants run the JAX package's ``jax.jit`` programs
 eagerly: its ``lax.while_loop`` fixpoints (connected-component labels,
 the watershed flood) become Python loops that read one change flag on
-the host per sweep; :data:`SWEEPS` counts those sweeps. Label maps stay
-in int32 throughout (ids reach h*w).
+the host per sweep (through ``_device.host_sync``); :data:`SWEEPS`
+counts those sweeps. Label maps stay in int32 throughout (ids reach
+h*w).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops as K
-from ._device import resolve_device, to_device
+from ._device import host_sync, resolve_device, to_device
 
 __all__ = [
     "MAX_OBJECTS",
@@ -167,7 +168,7 @@ def _label_t(fg: torch.Tensor) -> torch.Tensor:
         SWEEPS["label_sweeps"] += 1
         nxt = window3(lab, torch.minimum, big)
         nxt = torch.where(fg, torch.minimum(nxt, lab), big)
-        if torch.equal(nxt, lab):
+        if host_sync("label_sweep", torch.equal, nxt, lab):
             break
         lab = nxt
     return torch.where(fg, lab, 0)
@@ -334,7 +335,7 @@ def area_threshold_accel(state: dict, device="cuda", min_area: int = 24,
     lab = _label_t(to_device(state["nuclei"], dev))
     flat = lab.reshape(-1).long()
     # Histogram of label sizes (integer bincount over the dense id range).
-    counts = torch.bincount(flat, minlength=flat.numel() + 2)
+    counts = host_sync("bincount", torch.bincount, flat, minlength=flat.numel() + 2)
     sz = counts[flat]
     keep = (sz >= min_area) & (sz <= max_area) & (flat > 0)
     return {**state, "mask_at": keep.reshape(lab.shape)}
@@ -382,7 +383,7 @@ def watershed_accel(state: dict, device="cuda") -> dict:
             neigh = window3(lab, torch.maximum, 0)
             adopt = grow & (lab == 0) & (neigh > 0)
             lab = torch.where(adopt, neigh, lab)
-            if not bool(adopt.any()):
+            if not host_sync("watershed_sweep", bool, adopt.any()):
                 break
     return {**state, "labels": torch.where(mask, lab, 0)}
 
@@ -394,11 +395,13 @@ def bwlabel_accel(state: dict, device="cuda") -> dict:
     lab = _label_t(to_device(state["labels"], dev) > 0)
     flat = lab.reshape(-1).long()
     present = torch.zeros(flat.numel() + 2, dtype=torch.int32, device=dev)
-    present[flat] = 1
-    present[0] = 0
+    # In-place fills: an indexed assignment of a Python number uploads it
+    # from pageable memory and blocks the host.
+    present.index_fill_(0, flat, 1)
+    present[0].fill_(0)
     rank = torch.cumsum(present, 0, dtype=torch.int32)  # dense renumbering 1..n
     objects = torch.where(lab > 0, rank[flat].reshape(lab.shape), 0)
-    n = int(rank[-1])
+    n = host_sync("n_objects", int, rank[-1])
     objects = torch.where(objects <= MAX_OBJECTS, objects, 0)
     return {
         **state,

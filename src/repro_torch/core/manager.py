@@ -38,6 +38,7 @@ from .workflow import ConcreteWorkflow, StageInstance
 from .worker import WorkerRuntime
 from ..telemetry.metrics import MetricsRegistry
 from ..telemetry.tracing import SpanContext, current_context, use_context
+from ..telemetry.lanes import mark_pending, record_lease_wait
 from ..staging import (
     DirectoryService,
     PlacementDirectory,
@@ -474,6 +475,8 @@ class Manager:
             # thread (no ambient context) must not clobber the request's
             # context, and neither must an unrelated caller's.
             self._trace_ctx.setdefault(si.uid, ctx)
+        if self.tracer is not None:  # wait:lease starts (telemetry/lanes.py)
+            mark_pending(si)
         if getattr(si, "deadline", None) is None:
             self._pending.append(si)
         else:
@@ -1041,6 +1044,8 @@ class Manager:
         if svc is not None:
             svc.note_lease(si.uid, wid)
         ctx = self._trace_ctx.get(si.uid)
+        if self.tracer is not None:  # wait:lease ends (telemetry/lanes.py)
+            record_lease_wait(self.tracer, ctx, si, wid)
         if ctx is not None:
             # Re-install the request's context around the dispatch: the
             # submit_stage call (direct or over a TracingBus) carries it

@@ -55,6 +55,7 @@ from ..staging import RegionStore, StagingAgent, StagingConfig, op_key
 from ..staging.tiers import HostTier
 from ..telemetry.metrics import MetricsRegistry
 from ..telemetry.tracing import SpanContext, current_context, use_context
+from ..telemetry.lanes import LaneTrace
 
 __all__ = ["DeviceMemory", "LaneSpec", "OpContext", "WorkerRuntime"]
 
@@ -299,6 +300,9 @@ class WorkerRuntime:
         # probe lease on an empty queue and a lease behind a full
         # window must be judged on the same signal.
         self._stage_exec: dict[int, float] = {}
+        # Lane tracing (telemetry/lanes.py): queue waits, the lanes
+        # between ops, gc pauses; built only with a tracer.
+        self._lanes_trace = LaneTrace(self) if tracer is not None else None
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -320,6 +324,8 @@ class WorkerRuntime:
         for lane in self._lanes:
             if lane.thread is not None:
                 lane.thread.join(timeout=5.0)
+        if self._lanes_trace is not None:
+            self._lanes_trace.close()
         if self.agent is not None:
             self.agent.stop()
 
@@ -696,6 +702,8 @@ class WorkerRuntime:
                     lane.busy = True
             if not ois:
                 continue
+            if self._lanes_trace is not None:
+                self._lanes_trace.started(lane, ois)
             try:
                 self._run_batch(lane, ois)
             except BaseException as exc:  # noqa: BLE001 - recorded, not raised
@@ -771,6 +779,8 @@ class WorkerRuntime:
                 except BaseException as exc:  # noqa: BLE001 - recorded
                     failures.append((oi, exc))
         elapsed = time.perf_counter() - t0
+        if self._lanes_trace is not None:
+            self._lanes_trace.ended(ts_wall + elapsed, t0 + elapsed)
         lane.busy_seconds += elapsed
         lane.executed += len(ois)
         self.op_runtime_hist.observe(elapsed / len(ois))

@@ -115,6 +115,29 @@ REPAIRED = {
         "            if thread is not threading.current_thread():\n"
         "                thread.join(timeout=max(0.0, deadline - time.monotonic()))\n",
     ),
+    # A traced runtime's lane spans (``telemetry/lanes.py``): built with
+    # the tracer, told when a lane takes and ends its ops, closed at stop.
+    "core/worker.py": (
+        "from ..telemetry.lanes import LaneTrace\n",
+        "        # Lane tracing (telemetry/lanes.py): queue waits, the lanes\n"
+        "        # between ops, gc pauses; built only with a tracer.\n"
+        "        self._lanes_trace = LaneTrace(self) if tracer is not None else None\n",
+        "        if self._lanes_trace is not None:\n"
+        "            self._lanes_trace.close()\n",
+        "            if self._lanes_trace is not None:\n"
+        "                self._lanes_trace.started(lane, ois)\n",
+        "        if self._lanes_trace is not None:\n"
+        "            self._lanes_trace.ended(ts_wall + elapsed, t0 + elapsed)\n",
+    ),
+    # A traced Manager's ``wait:lease``: stamped as a stage instance
+    # enters the pending queue, recorded at its lease.
+    "core/manager.py": (
+        "from ..telemetry.lanes import mark_pending, record_lease_wait\n",
+        "        if self.tracer is not None:  # wait:lease starts (telemetry/lanes.py)\n"
+        "            mark_pending(si)\n",
+        "        if self.tracer is not None:  # wait:lease ends (telemetry/lanes.py)\n"
+        "            record_lease_wait(self.tracer, ctx, si, wid)\n",
+    ),
 }
 
 
