@@ -1352,7 +1352,9 @@ def run_main_path(tiles, fused: bool, lanes: tuple[str, ...] = ("gpu",),
     WorkerRuntime with one lane of each kind in ``lanes`` (locality on,
     ``policy``), the ``gpu`` variants on the card. Checks every stage
     completed and every op ran on one of ``lanes``; returns each tile's
-    ``feat_*``, ``n_objects`` and the ``keep`` keys (on the host), the
+    ``feat_*``, ``n_objects`` and the ``keep`` keys of its features stage
+    (on the host, read as the stage completes: a finished tile keeps
+    only its result), the
     kernels' launches (zeroed just before the run), the op profile per
     lane kind, lane busy seconds and the variant registry."""
     import torch
@@ -1379,6 +1381,17 @@ def run_main_path(tiles, fused: bool, lanes: tuple[str, ...] = ("gpu",),
     try:
         mgr = Manager(cw, ManagerConfig(window=2, heartbeat_timeout=60))
         mgr.register_worker(rt)
+        kept: dict[int, dict] = {}
+
+        def hold(uid: int) -> None:  # runs before the Manager releases the tile
+            si = cw.stage_instances[uid]
+            if si.stage.name == "features":
+                d = kept.setdefault(si.chunk.chunk_id, {})
+                for state in mgr.stage_outputs(uid).values():
+                    d.update({k: to_host(v) for k, v in state.items() if k in keep})
+
+        if keep:
+            mgr.completion_hook = hold
         gc.collect()  # free an earlier run's tensors held in reference cycles
         torch.cuda.synchronize()
         base_mem = torch.cuda.memory_allocated()
@@ -1405,7 +1418,9 @@ def run_main_path(tiles, fused: bool, lanes: tuple[str, ...] = ("gpu",),
             for state in (out or {}).values():
                 d = feats.setdefault(si.chunk.chunk_id, {})
                 d.update({k: to_host(v) for k, v in state.items()
-                          if k.startswith("feat_") or k == "n_objects" or k in keep})
+                          if k.startswith("feat_") or k == "n_objects"})
+        for cid, d in kept.items():
+            feats.setdefault(cid, {}).update(d)
         check(sorted(feats) == list(range(len(tiles))), f"{tag}: missing tiles")
         return dict(
             seconds=seconds,

@@ -36,6 +36,7 @@ from typing import Any, Callable, Optional
 
 from .workflow import ConcreteWorkflow, StageInstance
 from .worker import WorkerRuntime
+from .release import result_of
 from ..telemetry.metrics import MetricsRegistry
 from ..telemetry.tracing import SpanContext, current_context, use_context
 from ..telemetry.lanes import mark_pending, record_lease_wait
@@ -734,6 +735,62 @@ class Manager:
         # Manager (submit more instances when a request finishes).
         if completed is not None and self.completion_hook is not None:
             self.completion_hook(completed)
+        if completed is not None:  # after the hook: it sees the outputs whole
+            self._release_finished(si.chunk.chunk_id, completed)
+
+    def _release_finished(self, chunk: Any, uid: int) -> None:
+        """Release the outputs of the stage instances linked to ``uid``
+        (``core/release.py``) once all are done and none is pending,
+        leased or twinned: each keeps only its result, and every worker
+        that can release (in-process) drops its references to their op
+        outputs, which leave the placement directory."""
+        with self._lock:
+            group = self._finished_group_locked(uid)
+            if not group:
+                return
+            clones = [c for c, p in self._clone_map().items() if p in group]
+            op_uids = [
+                oi.uid
+                for g in group + clones
+                for oi in self.cw.stage_instances[g].op_instances
+            ]
+            for g in group:
+                outputs = self._stage_outputs.get(g)
+                if outputs is None:
+                    continue
+                stage = self.cw.stage_instances[g].stage
+                kept = {n: result_of(stage.op(n), v) for n, v in outputs.items()}
+                self._stage_outputs[g] = {
+                    n: v for n, v in kept.items() if v is not None
+                }
+            for wid, st in self._workers.items():
+                release = getattr(st.runtime, "release_ops", None)
+                if release is None:
+                    continue
+                release(chunk, op_uids)
+                for u in op_uids:
+                    if wid in self.directory.holders(op_key(u)):
+                        self.directory.evict(wid, op_key(u))
+
+    def _finished_group_locked(self, uid: int) -> list[int]:
+        """The stage instances linked to ``uid`` by dependencies, when
+        every one is done and none (nor a twin of one) is pending or
+        leased; else an empty list."""
+        group, stack = {uid}, [uid]
+        while stack:
+            si = self.cw.stage_instances[stack.pop()]
+            if si.uid not in self._stage_done:
+                return []
+            for u in si.deps | si.dependents:
+                if u not in group:
+                    group.add(u)
+                    stack.append(u)
+        clones_of = self._clone_map()
+        busy = [p.uid for p in self._pending]
+        busy += [u for w in self._workers.values() for u in w.leases]
+        if any(clones_of.get(u, u) in group for u in busy):
+            return []
+        return sorted(group)
 
     # -- failure handling / poison-chunk quarantine --------------------------
 

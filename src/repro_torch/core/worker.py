@@ -48,6 +48,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
 from .cost_model import TPU_V5E, op_cost_from_seconds, optimal_micro_batch
+from .release import tensor_bytes
 from .scheduling import HOST_KIND, ReadyScheduler
 from .variants import VariantRegistry, registry as global_registry
 from .workflow import OperationInstance, StageInstance
@@ -55,7 +56,7 @@ from ..staging import RegionStore, StagingAgent, StagingConfig, op_key
 from ..staging.tiers import HostTier
 from ..telemetry.metrics import MetricsRegistry
 from ..telemetry.tracing import SpanContext, current_context, use_context
-from ..telemetry.lanes import LaneTrace
+from ..telemetry.lanes import LaneTrace, record_release
 
 __all__ = ["DeviceMemory", "LaneSpec", "OpContext", "WorkerRuntime"]
 
@@ -93,6 +94,10 @@ class DeviceMemory:
 
     def __contains__(self, uid: int) -> bool:
         return uid in self._store
+
+    def discard(self, uid: int) -> Any:
+        """Remove ``uid``'s entry, not an eviction: its value, or None."""
+        return self._store.pop(uid, None)
 
     def resident_uids(self) -> set[int]:
         return set(self._store)
@@ -273,6 +278,10 @@ class WorkerRuntime:
         # (predictive push of sink outputs) before the lease's own pull.
         self.push_ingested = c("push_ingested")
         self.push_ingested_bytes = c("push_ingested_bytes")
+        # Finished chunks' op outputs dropped (release_ops), and the
+        # tensor bytes they held.
+        self.released_chunks = c("released_chunks")
+        self.released_bytes = c("released_bytes")
         # Trace context per leased stage: captured at submit time (the
         # TracingBus installs the sender's context around the handler)
         # and re-installed around op execution and the completion
@@ -646,6 +655,8 @@ class WorkerRuntime:
             "batched_ops": int(self.scheduler.stats.batched_ops),
             "push_ingested": int(self.push_ingested),
             "push_ingested_bytes": int(self.push_ingested_bytes),
+            "released_chunks": int(self.released_chunks),
+            "released_bytes": int(self.released_bytes),
             "staging": self.store.stats(),
             "prefetch": self.agent.stats() if self.agent is not None else {},
         }
@@ -656,6 +667,36 @@ class WorkerRuntime:
             if value is None:
                 value = self._materialize_locked(oi_uid)
             return value
+
+    def release_ops(self, chunk: Any, uids: list[int]) -> int:
+        """Drop every reference this runtime holds to the outputs of op
+        instances ``uids``, whose chunk the Manager saw finish (no lease
+        can read them again; ``core/release.py``): host tier, lanes'
+        device memory, the chained maps.  Returns the tensor bytes
+        dropped; a ``release`` span where traced."""
+        ts, t0 = time.time(), time.perf_counter()
+        held: list[Any] = []
+        with self._lock:
+            for uid in uids:
+                key = op_key(uid)
+                if key in self.store:
+                    held.append(self.store.get(key))
+                    self.store.unpin(key)
+                    self.store.discard(key)
+                for lane in self._lanes:
+                    if lane.memory is not None and uid in lane.memory:
+                        held.append(lane.memory.discard(uid))
+                self._device_only.pop(uid, None)
+                held.append(self._host_chained.pop(uid, None))
+            released = any(v is not None for v in held)
+            nbytes = tensor_bytes(held)
+            if released:
+                self.released_chunks += 1
+                self.released_bytes += nbytes
+        del held
+        if released and self.tracer is not None:
+            record_release(self.tracer, ts, time.perf_counter() - t0, chunk, nbytes)
+        return nbytes
 
     # -- lane main loop -----------------------------------------------------------
 

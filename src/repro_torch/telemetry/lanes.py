@@ -20,6 +20,9 @@ one it builds none and pays nothing. Every span goes to that runtime's
 * ``wait:lease`` (``args.stage``) -- a stage instance in the Manager's
   pending queue until its lease (:func:`mark_pending`,
   :func:`record_lease_wait`).
+* ``release`` (``args.bytes``) -- a worker dropping the outputs of a
+  finished chunk, and the tensor bytes they held (:func:`record_release`,
+  ``WorkerRuntime.release_ops``).
 
 No name begins with ``op:``: what reads the ``op:*`` spans reads the
 Worker's own. Spans belong to a sampled stage context, as the Worker's.
@@ -33,9 +36,10 @@ import time
 import uuid
 from typing import Any, Optional
 
-from .tracing import SpanContext
+from .tracing import SpanContext, current_context
 
-__all__ = ["LaneTrace", "OpTrace", "current_op", "mark_pending", "record_lease_wait"]
+__all__ = ["LaneTrace", "OpTrace", "current_op", "mark_pending", "record_lease_wait",
+           "record_release"]
 
 #: Collections held back for the tracer at most (see ``LaneTrace._on_gc``).
 GC_BACKLOG = 4096
@@ -158,3 +162,12 @@ def record_lease_wait(tracer, ctx: Optional[SpanContext], si, worker: int) -> No
     _record(tracer, ctx, "wait:lease", since[0], time.perf_counter() - since[1], "manager",
             {"chunk": si.chunk.chunk_id, "stage": si.stage.name, "uid": si.uid,
              "worker": worker})
+
+
+def record_release(tracer, ts: float, dur: float, chunk: Any, nbytes: int) -> None:
+    """The ``release`` span of a worker dropping a finished chunk's
+    outputs, in the context of the stage whose completion finished it."""
+    ctx = current_context()
+    if ctx is None or not ctx.sampled:
+        return
+    _record(tracer, ctx, "release", ts, dur, "release", {"chunk": chunk, "bytes": nbytes})

@@ -117,24 +117,126 @@ REPAIRED = {
     ),
     # A traced runtime's lane spans (``telemetry/lanes.py``): built with
     # the tracer, told when a lane takes and ends its ops, closed at stop.
+    # The release of a finished chunk's outputs (``core/release.py``):
+    # ``DeviceMemory.discard``, the counters, ``release_ops``.
     "core/worker.py": (
-        "from ..telemetry.lanes import LaneTrace\n",
+        "from .release import tensor_bytes\n",
+        "from ..telemetry.lanes import LaneTrace, record_release\n",
+        "\n"
+        "    def discard(self, uid: int) -> Any:\n"
+        "        \"\"\"Remove ``uid``'s entry, not an eviction: its value, or None.\"\"\"\n"
+        "        return self._store.pop(uid, None)\n",
+        "        # Finished chunks' op outputs dropped (release_ops), and the\n"
+        "        # tensor bytes they held.\n"
+        "        self.released_chunks = c(\"released_chunks\")\n"
+        "        self.released_bytes = c(\"released_bytes\")\n",
         "        # Lane tracing (telemetry/lanes.py): queue waits, the lanes\n"
         "        # between ops, gc pauses; built only with a tracer.\n"
         "        self._lanes_trace = LaneTrace(self) if tracer is not None else None\n",
         "        if self._lanes_trace is not None:\n"
         "            self._lanes_trace.close()\n",
+        "            \"released_chunks\": int(self.released_chunks),\n"
+        "            \"released_bytes\": int(self.released_bytes),\n",
+        "\n"
+        "    def release_ops(self, chunk: Any, uids: list[int]) -> int:\n"
+        "        \"\"\"Drop every reference this runtime holds to the outputs of op\n"
+        "        instances ``uids``, whose chunk the Manager saw finish (no lease\n"
+        "        can read them again; ``core/release.py``): host tier, lanes'\n"
+        "        device memory, the chained maps.  Returns the tensor bytes\n"
+        "        dropped; a ``release`` span where traced.\"\"\"\n"
+        "        ts, t0 = time.time(), time.perf_counter()\n"
+        "        held: list[Any] = []\n"
+        "        with self._lock:\n"
+        "            for uid in uids:\n"
+        "                key = op_key(uid)\n"
+        "                if key in self.store:\n"
+        "                    held.append(self.store.get(key))\n"
+        "                    self.store.unpin(key)\n"
+        "                    self.store.discard(key)\n"
+        "                for lane in self._lanes:\n"
+        "                    if lane.memory is not None and uid in lane.memory:\n"
+        "                        held.append(lane.memory.discard(uid))\n"
+        "                self._device_only.pop(uid, None)\n"
+        "                held.append(self._host_chained.pop(uid, None))\n"
+        "            released = any(v is not None for v in held)\n"
+        "            nbytes = tensor_bytes(held)\n"
+        "            if released:\n"
+        "                self.released_chunks += 1\n"
+        "                self.released_bytes += nbytes\n"
+        "        del held\n"
+        "        if released and self.tracer is not None:\n"
+        "            record_release(self.tracer, ts, time.perf_counter() - t0, chunk, nbytes)\n"
+        "        return nbytes\n",
         "            if self._lanes_trace is not None:\n"
         "                self._lanes_trace.started(lane, ois)\n",
         "        if self._lanes_trace is not None:\n"
         "            self._lanes_trace.ended(ts_wall + elapsed, t0 + elapsed)\n",
     ),
     # A traced Manager's ``wait:lease``: stamped as a stage instance
-    # enters the pending queue, recorded at its lease.
+    # enters the pending queue, recorded at its lease. The release of a
+    # finished chunk's outputs after its completion hook
+    # (``core/release.py``).
     "core/manager.py": (
+        "from .release import result_of\n",
         "from ..telemetry.lanes import mark_pending, record_lease_wait\n",
         "        if self.tracer is not None:  # wait:lease starts (telemetry/lanes.py)\n"
         "            mark_pending(si)\n",
+        "        if completed is not None:  # after the hook: it sees the outputs whole\n"
+        "            self._release_finished(si.chunk.chunk_id, completed)\n"
+        "\n"
+        "    def _release_finished(self, chunk: Any, uid: int) -> None:\n"
+        "        \"\"\"Release the outputs of the stage instances linked to ``uid``\n"
+        "        (``core/release.py``) once all are done and none is pending,\n"
+        "        leased or twinned: each keeps only its result, and every worker\n"
+        "        that can release (in-process) drops its references to their op\n"
+        "        outputs, which leave the placement directory.\"\"\"\n"
+        "        with self._lock:\n"
+        "            group = self._finished_group_locked(uid)\n"
+        "            if not group:\n"
+        "                return\n"
+        "            clones = [c for c, p in self._clone_map().items() if p in group]\n"
+        "            op_uids = [\n"
+        "                oi.uid\n"
+        "                for g in group + clones\n"
+        "                for oi in self.cw.stage_instances[g].op_instances\n"
+        "            ]\n"
+        "            for g in group:\n"
+        "                outputs = self._stage_outputs.get(g)\n"
+        "                if outputs is None:\n"
+        "                    continue\n"
+        "                stage = self.cw.stage_instances[g].stage\n"
+        "                kept = {n: result_of(stage.op(n), v) for n, v in outputs.items()}\n"
+        "                self._stage_outputs[g] = {\n"
+        "                    n: v for n, v in kept.items() if v is not None\n"
+        "                }\n"
+        "            for wid, st in self._workers.items():\n"
+        "                release = getattr(st.runtime, \"release_ops\", None)\n"
+        "                if release is None:\n"
+        "                    continue\n"
+        "                release(chunk, op_uids)\n"
+        "                for u in op_uids:\n"
+        "                    if wid in self.directory.holders(op_key(u)):\n"
+        "                        self.directory.evict(wid, op_key(u))\n"
+        "\n"
+        "    def _finished_group_locked(self, uid: int) -> list[int]:\n"
+        "        \"\"\"The stage instances linked to ``uid`` by dependencies, when\n"
+        "        every one is done and none (nor a twin of one) is pending or\n"
+        "        leased; else an empty list.\"\"\"\n"
+        "        group, stack = {uid}, [uid]\n"
+        "        while stack:\n"
+        "            si = self.cw.stage_instances[stack.pop()]\n"
+        "            if si.uid not in self._stage_done:\n"
+        "                return []\n"
+        "            for u in si.deps | si.dependents:\n"
+        "                if u not in group:\n"
+        "                    group.add(u)\n"
+        "                    stack.append(u)\n"
+        "        clones_of = self._clone_map()\n"
+        "        busy = [p.uid for p in self._pending]\n"
+        "        busy += [u for w in self._workers.values() for u in w.leases]\n"
+        "        if any(clones_of.get(u, u) in group for u in busy):\n"
+        "            return []\n"
+        "        return sorted(group)\n",
         "        if self.tracer is not None:  # wait:lease ends (telemetry/lanes.py)\n"
         "            record_lease_wait(self.tracer, ctx, si, wid)\n",
     ),
