@@ -1,58 +1,29 @@
-"""The comparison that decides ``correct``: the program's outputs of a
-tile against the plain reference's, one number per output, each held
-to its own limit (``bench/limits/<cell>.json``).
-
-* ``n_objects``: the largest difference in the object count of a tile.
-* ``labels``: the largest share of a tile's pixels whose object label
-  differs.
-* ``feat_*``: the largest error of a feature, as a share of the largest
-  magnitude the reference gives that feature over the tile's objects
-  (a column of a per-object table); a tile-level vector (Haralick's
-  four numbers) is held element by element. A value that is not finite
-  reads as infinity.
-
-Each number is the worst over the tiles compared.
-"""
+"""What decides ``correct``, shared by every kind: the numbers of each
+compared sample, the worst of each over the samples, and whether each
+is within its limit (``bench/limits/<cell>.json``). The numbers
+themselves come from the configuration's comparison
+(``bench/compare/<compare>.py``, named in its file). A sample gives the
+numbers of what it holds: a cell may compare samples of more than one
+stage, each with numbers of its own."""
 
 from __future__ import annotations
 
-import numpy as np
-
-__all__ = ["compare", "judge", "worst"]
-
-#: A 1-D output this short is a tile-level vector, held element by element.
-TILE_LEVEL = 16
+__all__ = ["judge", "within", "worst"]
 
 
-def feature_error(got: np.ndarray, want: np.ndarray) -> float:
-    g = np.asarray(got, np.float64)
-    w = np.asarray(want, np.float64)
-    if g.shape != w.shape:
-        return float("inf")
-    if not np.isfinite(g).all():
-        return float("inf")
-    if g.ndim == 1:
-        g, w = (g[None, :], w[None, :]) if g.size <= TILE_LEVEL else (g[:, None], w[:, None])
-    scale = np.maximum(np.abs(w).max(axis=0), np.finfo(np.float64).tiny)
-    return float((np.abs(g - w) / scale).max()) if g.size else 0.0
-
-
-def compare(got: dict, want: dict) -> dict[str, float]:
-    """The numbers of one tile."""
-    out = {"n_objects": float(abs(int(got["n_objects"]) - int(want["n_objects"])))}
-    g, w = np.asarray(got["objects"]), np.asarray(want["objects"])
-    out["labels"] = float((g != w).mean()) if g.shape == w.shape else 1.0
-    for key in sorted(k for k in want if k.startswith("feat_")):
-        out[key] = feature_error(got[key], want[key]) if key in got else float("inf")
-    return out
-
-
-def worst(per_tile: list[dict[str, float]]) -> dict[str, float]:
-    keys = sorted({k for d in per_tile for k in d})
-    return {k: max(d.get(k, float("inf")) for d in per_tile) for k in keys}
+def worst(per_sample: list[dict[str, float]]) -> dict[str, float]:
+    """Each number's worst over the samples that give it."""
+    keys = sorted({k for d in per_sample for k in d})
+    return {k: max(d[k] for d in per_sample if k in d) for k in keys}
 
 
 def judge(numbers: dict[str, float], limits: dict[str, float]) -> bool:
     """True where every number is within its limit (and every limit
     has a number)."""
     return all(k in numbers and numbers[k] <= lim for k, lim in limits.items())
+
+
+def within(numbers: dict[str, float], limits: dict[str, float]) -> bool:
+    """True where every number that one sample gives is within its
+    limit."""
+    return all(v <= limits[k] for k, v in numbers.items() if k in limits)

@@ -1,16 +1,19 @@
 """What a driver hands back from one run, and what the metric readers
-read: the window, every tile's times on the harness's clock, the
-program's counters at the window's two ends, its spans and the device
-trace of a traced run."""
+read: the window, each unit of the traffic's start and completion on
+the driver's clock, the program's counters at the window's two ends,
+its spans, the device trace of a traced run, and the kind's own record
+(``Run.own``: what only one kind of configuration has, which only its
+driver and its readers know)."""
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
+from typing import Any
 
 from .trace import DeviceTrace
 
-__all__ = ["Run", "TileTimes", "nearest_rank"]
+__all__ = ["Item", "Run", "Sample", "nearest_rank"]
 
 
 def nearest_rank(values: list[float], pct: float) -> float:
@@ -23,57 +26,62 @@ def nearest_rank(values: list[float], pct: float) -> float:
 
 
 @dataclass
-class TileTimes:
-    """One tile's times on ``time.perf_counter``: the lease of its
-    first stage and the completion of its last (None until then)."""
+class Item:
+    """One unit of the traffic, on the driver's clock: when the program
+    took it up (None until then) and when its result was complete."""
 
-    chunk: int
-    leased: float | None = None
+    key: int
+    start: float | None = None
     done: float | None = None
 
 
 @dataclass
+class Sample:
+    """One completed unit that the run compares: the inputs that the
+    harness made for it (what the reference is given) and what the
+    program produced (what the comparison judges)."""
+
+    key: int
+    inputs: Any
+    got: Any
+
+
+@dataclass
 class Run:
-    t_open: float                        # perf_counter at the window's opening
-    t_close: float                       # perf_counter at its closing
+    t_open: float                        # driver's clock at the window's opening
+    t_close: float                       # at its closing
     wall_open: float                     # time.time at the opening
     setup_s: float
-    tiles: dict[int, TileTimes]
+    items: dict[int, Item]
     counters_open: dict[str, float]
     counters_close: dict[str, float]
-    peak_bytes: int                      # max_memory_allocated, window open to the driver's PEAK_TILES-th tile
+    peak_bytes: int                      # max_memory_allocated over the span the driver states
     window_peak_bytes: int               # max_memory_allocated over the whole window
-    tile_shape: tuple[int, int]
-    stage_ops: dict[str, list[str]]      # stage name -> its op names
     spans: list[dict] = field(default_factory=list)
-    op_chunks: dict[int, int] = field(default_factory=dict)  # op instance uid -> its tile
     device: DeviceTrace | None = None
     errors: list[str] = field(default_factory=list)
+    own: Any = None                      # the kind's own record
 
     @property
     def seconds(self) -> float:
         """The window's length."""
         return self.t_close - self.t_open
 
-    def done(self) -> list[TileTimes]:
-        """Tiles whose last stage completed inside the window."""
-        return [t for t in self.tiles.values()
+    def done(self) -> list[Item]:
+        """Units completed inside the window."""
+        return [t for t in self.items.values()
                 if t.done is not None and self.t_open < t.done <= self.t_close]
 
+    def wall(self, t: float) -> float:
+        """A time on the driver's clock as a wall-clock (``time.time``)
+        time, the clock of the spans and the device trace."""
+        return self.wall_open + (t - self.t_open)
+
     def done_between(self, wall_start: float, wall_end: float) -> int:
-        """Tiles completed between two wall-clock instants."""
+        """Units completed between two wall-clock instants."""
         lo = self.t_open + (wall_start - self.wall_open)
         hi = self.t_open + (wall_end - self.wall_open)
-        return sum(1 for t in self.tiles.values() if t.done is not None and lo < t.done <= hi)
+        return sum(1 for t in self.items.values() if t.done is not None and lo < t.done <= hi)
 
     def counter_delta(self, key: str) -> float:
         return self.counters_close[key] - self.counters_open[key]
-
-    def stage_span_seconds(self, stage: str) -> float:
-        """Seconds of the ``op:*`` spans of ``stage``'s ops on the tiles
-        completed inside the window (found by the op's uid, not by the
-        span's wall-clock start, which a step of the host's clock moves)."""
-        names = {f"op:{op}" for op in self.stage_ops[stage]}
-        done = {t.chunk for t in self.done()}
-        return sum(s["dur"] for s in self.spans if s["name"] in names
-                   and self.op_chunks.get(s["args"].get("uid")) in done)

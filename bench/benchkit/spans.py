@@ -1,7 +1,7 @@
-"""What the readers of the program's lane spans share (``wait:op``,
-``wait:lease``, ``lane:between``, ``sync``, ``gc``: see the port's
-``telemetry/lanes.py``): the spans of the tiles completed in the window,
-sums a tile, and the device's busy time inside a host interval.
+"""What the readers of the program's spans share, whatever the kind
+(``sync``, ``gc``, ``lane:between``, ``op:<name>``: see the port's
+``telemetry/lanes.py``): the device's busy time inside a host interval,
+and the device's idle time named by the innermost span the host was in.
 
 The program's spans and the device trace are on one clock (``ts`` on
 ``time.time``, the profiler's events converted to it), which
@@ -15,21 +15,7 @@ from itertools import accumulate
 
 from .trace import DeviceTrace, gaps
 
-__all__ = ["Busy", "device_s_by_op", "idle_by_span", "op_intervals", "op_seconds", "per_tile",
-           "tile_spans"]
-
-
-def tile_spans(run, name: str) -> list[dict]:
-    """The spans ``name`` of the tiles completed in the window (by their
-    ``args.chunk``)."""
-    done = {t.chunk for t in run.done()}
-    return [s for s in run.spans if s["name"] == name and s["args"].get("chunk") in done]
-
-
-def per_tile(run, total: float) -> float | None:
-    """``total`` over the tiles completed in the window."""
-    n = len(run.done())
-    return total / n if n else None
+__all__ = ["Busy", "idle_by_span"]
 
 
 class Busy:
@@ -56,33 +42,6 @@ class Busy:
             return 0.0
         return (self._before[j] - self._before[i] - max(0.0, lo - self.starts[i])
                 - max(0.0, self.ends[j - 1] - hi))
-
-
-def op_intervals(run) -> list[tuple[str, float, float]]:
-    """Each ``op:<name>`` span of the tiles completed in the window (by
-    its op's uid), clipped to the traced window."""
-    done = {t.chunk for t in run.done()}
-    lo, hi = run.device.start, run.device.end
-    out = []
-    for s in run.spans:
-        if s["name"].startswith("op:") and run.op_chunks.get(s["args"].get("uid")) in done:
-            a, b = max(s["ts"], lo), min(s["ts"] + s["dur"], hi)
-            if b > a:
-                out.append((s["name"], a, b))
-    return out
-
-
-def op_seconds(run) -> float:
-    """The length of :func:`op_intervals`."""
-    return sum(b - a for _, a, b in op_intervals(run))
-
-
-def device_s_by_op(run) -> dict[str, float]:
-    """Device seconds inside :func:`op_intervals`, by ``op:<name>``."""
-    busy, out = Busy(run.device), {}
-    for name, a, b in op_intervals(run):
-        out[name] = out.get(name, 0.0) + busy.within(a, b)
-    return out
 
 
 #: The host spans an idle gap is named by, the innermost (shortest) first.

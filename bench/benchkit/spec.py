@@ -1,19 +1,31 @@
 """Lookup by name: a cell, its configuration, its traffic, its limits,
-its driver, its reference and the readers of its metrics.
+its driver, its reference, its comparison, its control and the readers
+of its metrics.
 
 Everything that belongs to one configuration, traffic mix or metric
 sits in a file of its own, found by the name ``BENCHMARK.json`` gives:
 
 * a cell (``workloads``) names a configuration and a traffic mix;
 * a configuration's ``file`` holds its sizes and names its ``driver``
-  (``bench/drivers/<driver>.py``) and its plain ``reference``
-  (``bench/reference/<reference>.py``);
-* a traffic mix is ``bench/traffic/<traffic>.json``;
+  (``bench/drivers/<driver>.py``: ``run(cell, seed, seconds, trace,
+  device, t_start) -> (Run, [Sample])``, which makes the cell's traffic
+  from the seed, runs the program and keeps the samples' inputs and
+  outputs), its plain ``reference`` (``bench/reference/<reference>.py``:
+  ``run_sample(inputs, device)``) and its ``compare``
+  (``bench/compare/<compare>.py``: ``compare(got, want)``, the numbers
+  of one sample) and its ``control`` (``bench/controls/<control>.py``:
+  ``readings(cell, seed, device, controls)``, which ``bench/control.py``
+  runs);
+* a traffic mix is ``bench/traffic/<traffic>.json``, parameters that
+  the driver's generator reads;
 * a cell's limits on the numbers that decide ``correct`` are
   ``bench/limits/<cell>.json``;
 * a metric, end to end or per layer, is read by
   ``bench/metrics/<metric>.py``, whose ``read(run)`` returns a number,
-  or None where the run holds nothing to read.
+  or None where the run holds nothing to read. A quantity split by the
+  end-to-end metric it moves (``<quantity>.<part>``: one name for the
+  cells of each) is read by ``<quantity>.py`` unless the part has a
+  file of its own.
 
 A later cell, metric or configuration adds files and entries; no file
 here changes.
@@ -27,7 +39,7 @@ from dataclasses import dataclass
 from pathlib import Path
 from types import ModuleType
 
-__all__ = ["BENCH", "ROOT", "Cell", "load_cell", "load_module", "metrics_of"]
+__all__ = ["BENCH", "ROOT", "Cell", "load_cell", "load_module", "load_reader", "metrics_of"]
 
 BENCH = Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
@@ -42,6 +54,11 @@ class Cell:
     traffic_name: str
     traffic: dict
     limits: dict
+    root: Path = ROOT      # the checkout that holds BENCHMARK.json
+
+    @property
+    def bench(self) -> Path:
+        return self.root / "bench"
 
 
 def _json(path: Path) -> dict:
@@ -63,14 +80,16 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
     cell = cells[name]
     configs = {c["name"]: c for c in spec["configs"]}
     config = configs[cell["config"]]
+    bench = root / "bench"
     return Cell(
         name=name,
         chips=int(cell["chips"]),
         config_name=config["name"],
         config=_json(root / config["file"]),
         traffic_name=cell["traffic"],
-        traffic=_json(BENCH / "traffic" / f"{cell['traffic']}.json"),
-        limits=_json(BENCH / "limits" / f"{name}.json"),
+        traffic=_json(bench / "traffic" / f"{cell['traffic']}.json"),
+        limits=_json(bench / "limits" / f"{name}.json"),
+        root=root,
     )
 
 
@@ -83,12 +102,20 @@ def metrics_of(cell: str, trace: bool, root: Path = ROOT) -> list[dict]:
     return [m for m in spec[kind] if cell in m.get("workloads", (cell,))]
 
 
-def load_module(kind: str, name: str) -> ModuleType:
-    """``bench/<kind>/<name>.py`` as a module (names may hold dots)."""
-    path = BENCH / kind / f"{name}.py"
+def load_module(kind: str, name: str, bench: Path = BENCH) -> ModuleType:
+    """``<bench>/<kind>/<name>.py`` as a module (names may hold dots)."""
+    path = bench / kind / f"{name}.py"
     if not path.exists():
         raise KeyError(f"no {kind} module {name!r} ({path})")
     spec = importlib.util.spec_from_file_location(f"bench_{kind}_{name}".replace(".", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_reader(metric: str, bench: Path = BENCH):
+    """The ``read`` of metric ``metric``: ``<bench>/metrics/<metric>.py``,
+    else, for ``<quantity>.<part>``, ``<bench>/metrics/<quantity>.py``."""
+    stem = metric.split(".", 1)[0]
+    name = metric if (bench / "metrics" / f"{metric}.py").exists() else stem
+    return load_module("metrics", name, bench).read

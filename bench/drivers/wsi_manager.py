@@ -45,8 +45,9 @@ import math
 import threading
 import time
 
-from benchkit.record import Run, TileTimes
-from benchkit.tiles import Traffic, rng_for
+from benchkit.record import Item, Run, Sample
+from kinds.wsi_record import WsiRecord
+from kinds.wsi_tiles import make_traffic, rng_for
 
 __all__ = ["run"]
 
@@ -107,11 +108,11 @@ class _Window:
                 self.closed.set()
 
 
-def run(cell, traffic: Traffic, seed: int, seconds: float, trace: bool, device: str,
-        t_start: float) -> tuple[Run, dict[int, dict]]:
-    """One run of ``cell``: returns the :class:`Run` and, for a sample
-    of the tiles completed in the window (drawn from ``seed``), their
-    outputs on the host."""
+def run(cell, seed: int, seconds: float, trace: bool, device: str,
+        t_start: float) -> tuple[Run, list[Sample]]:
+    """One run of ``cell`` on tiles made from ``seed``: returns the
+    :class:`Run` and, for a sample of the tiles completed in the window
+    (drawn from ``seed``), each tile and its outputs on the host."""
     import torch
 
     from repro_torch.app import build_workflow, register_variants
@@ -122,6 +123,7 @@ def run(cell, traffic: Traffic, seed: int, seconds: float, trace: bool, device: 
     from repro_torch.telemetry.tracing import Tracer, use_context
 
     cfg = cell.config
+    traffic = make_traffic(cell.traffic, seed, int(cfg["tile"]))
     dev = torch.device(device)
     workflow = build_workflow(**cfg["workflow"])
     stage_names = workflow.stage_order()
@@ -147,14 +149,14 @@ def run(cell, traffic: Traffic, seed: int, seconds: float, trace: bool, device: 
     mgr = Manager(cw, ManagerConfig(**cfg["manager"]), tracer=tracer)
     mgr.register_worker(rt)
 
-    tiles = {i: TileTimes(i) for i in range(traffic.bag_tiles)}
+    tiles = {i: Item(i) for i in range(traffic.bag_tiles)}
     window = _Window(warm_tiles, seconds, rt, dev)
     submit = rt.submit_stage
 
     def leased(si):
         chunk, stage = stage_of[si.uid]
-        if stage == first and tiles[chunk].leased is None:
-            tiles[chunk].leased = time.perf_counter()
+        if stage == first and tiles[chunk].start is None:
+            tiles[chunk].start = time.perf_counter()
         return submit(si)
 
     def completed(uid: int) -> None:
@@ -198,26 +200,28 @@ def run(cell, traffic: Traffic, seed: int, seconds: float, trace: bool, device: 
         rt.stop()
     record = Run(
         t_open=window.t_open, t_close=window.t_close, wall_open=window.wall_open,
-        setup_s=window.t_open - t_start, tiles=tiles,
+        setup_s=window.t_open - t_start, items=tiles,
         counters_open=window.at_open, counters_close=window.at_close,
         peak_bytes=int(window.peak), window_peak_bytes=int(window.window_peak),
-        tile_shape=(int(cfg["tile"]), int(cfg["tile"])), stage_ops=stage_ops,
         spans=tracer.spans() if tracer is not None else [], device=device_trace,
-        op_chunks={oi.uid: oi.chunk.chunk_id for oi in cw.op_instances.values()} if trace else {},
-        errors=[f"op {uid}: {type(exc).__name__}: {exc}" for uid, exc in rt.errors])
-    return record, _samples(mgr, uid_of, record, cell, seed, first, last)
+        errors=[f"op {uid}: {type(exc).__name__}: {exc}" for uid, exc in rt.errors],
+        own=WsiRecord(tile_shape=(int(cfg["tile"]), int(cfg["tile"])), stage_ops=stage_ops,
+                      op_chunks={oi.uid: oi.chunk.chunk_id
+                                 for oi in cw.op_instances.values()} if trace else {}))
+    return record, _samples(mgr, uid_of, record, traffic, cell, seed, first, last)
 
 
-def _samples(mgr, uid_of, record: Run, cell, seed: int, first: str, last: str) -> dict[int, dict]:
-    """Outputs on the host of a seeded sample of the tiles completed in
-    the window: the labels and object count of the first stage's
-    ``LABELS_OP``, and every ``feat_*`` of the last stage."""
+def _samples(mgr, uid_of, record: Run, traffic, cell, seed: int, first: str,
+             last: str) -> list[Sample]:
+    """A seeded sample of the tiles completed in the window: each tile,
+    and its outputs on the host: the labels and object count of the
+    first stage's ``LABELS_OP``, and every ``feat_*`` of the last stage."""
     from repro_torch.app._device import to_host
 
-    done = sorted(t.chunk for t in record.done())
+    done = sorted(t.key for t in record.done())
     k = min(int(cell.limits["check_tiles"]), len(done))
     picks = sorted(int(c) for c in rng_for(seed, 3).choice(done, size=k, replace=False)) if k else []
-    out = {}
+    out = []
     for chunk in picks:
         seg = mgr.stage_outputs(uid_of[(chunk, first)])
         feats = mgr.stage_outputs(uid_of[(chunk, last)])
@@ -225,5 +229,5 @@ def _samples(mgr, uid_of, record: Run, cell, seed: int, first: str, last: str) -
         got = {"objects": to_host(labelled["objects"]), "n_objects": int(labelled["n_objects"])}
         for st in feats.values():
             got.update({key: to_host(v) for key, v in st.items() if key.startswith(FEAT_PREFIX)})
-        out[chunk] = got
+        out.append(Sample(chunk, traffic.tile(chunk), got))
     return out

@@ -7,5 +7,5 @@ from benchkit.peaks import roofline_share
 
 
 def read(run):
-    h, w = run.tile_shape
+    h, w = run.own.tile_shape
     return roofline_share(run, "color_deconv_kernel", 15.0 * h * w, 30.0 * h * w)

@@ -3,7 +3,7 @@
 the op's ``lane:between`` span carries as ``args.allocs``, summed over
 the tiles completed in the window, over their number."""
 
-from benchkit.spans import per_tile, tile_spans
+from kinds.wsi_record import per_tile, tile_spans
 
 
 def read(run):

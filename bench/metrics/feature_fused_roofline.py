@@ -8,5 +8,5 @@ from benchkit.peaks import roofline_share
 
 
 def read(run):
-    h, w = run.tile_shape
+    h, w = run.own.tile_shape
     return roofline_share(run, "feature_fused_kernel", 15.0 * h * w + 24.0, 60.0 * h * w)

@@ -4,5 +4,5 @@
 
 def read(run):
     done = len(run.done())
-    secs = run.stage_span_seconds("features")
+    secs = run.own.stage_span_seconds(run, "features")
     return secs / done if done and secs > 0 else None

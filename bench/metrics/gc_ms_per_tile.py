@@ -2,7 +2,7 @@
 every thread: the program's ``gc`` spans clipped to the window, over the
 tiles completed in it."""
 
-from benchkit.spans import per_tile
+from kinds.wsi_record import per_tile
 
 
 def read(run):

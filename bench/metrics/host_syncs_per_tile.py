@@ -3,7 +3,7 @@
 downloads, uploads, ``bincount`` and the synchronize ending each op) of
 the tiles completed in the window, over their number."""
 
-from benchkit.spans import per_tile, tile_spans
+from kinds.wsi_record import per_tile, tile_spans
 
 
 def read(run):

@@ -7,5 +7,5 @@ from benchkit.peaks import roofline_share
 
 
 def read(run):
-    h, w = run.tile_shape
+    h, w = run.own.tile_shape
     return roofline_share(run, "morph_recon_kernel", 12.0 * h * w, 10.0 * h * w)

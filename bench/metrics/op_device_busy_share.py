@@ -4,7 +4,7 @@ the tiles completed in the window, over those spans' length, both
 clipped to the traced window. A ``gpu`` op synchronises before it
 returns, so the device intervals inside its span are its own."""
 
-from benchkit.spans import device_s_by_op, op_seconds
+from kinds.wsi_record import device_s_by_op, op_seconds
 
 
 def read(run):

@@ -3,7 +3,7 @@ worker's queue: the program's ``wait:op`` spans (an op's push on the
 ``ReadyScheduler`` to a lane taking it) of the tiles completed in the
 window, summed, over their number."""
 
-from benchkit.spans import per_tile, tile_spans
+from kinds.wsi_record import per_tile, tile_spans
 
 
 def read(run):

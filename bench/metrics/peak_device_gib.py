@@ -1,8 +1,10 @@
 """``torch.cuda.max_memory_allocated()`` in GiB, from the window's
-opening (reset there, the lanes' memory slots full) until the
-driver's ``PEAK_TILES``-th tile completed in the window: a fixed
-amount of work, so that a faster program does not read larger
-for holding more finished tiles."""
+opening (reset there), over the span of work that the cell's driver
+states: the WSI driver reads it until its ``PEAK_TILES``-th tile
+completed in the window (the lanes' memory slots full), a fixed amount
+of work, so that a faster program does not read larger for holding more
+finished tiles; a model driver reads the whole window, since a static
+batch's memory is flat."""
 
 
 def read(run):

@@ -3,7 +3,7 @@
 outputs, the port's ``core/release.py``) of the tiles completed in the
 window, over their number. A program without the span reads nothing."""
 
-from benchkit.spans import per_tile, tile_spans
+from kinds.wsi_record import per_tile, tile_spans
 
 
 def read(run):

@@ -6,5 +6,5 @@ completed in it."""
 
 def read(run):
     done = len(run.done())
-    secs = run.stage_span_seconds("segmentation")
+    secs = run.own.stage_span_seconds(run, "segmentation")
     return secs / done if done and secs > 0 else None

@@ -6,5 +6,5 @@ from benchkit.record import nearest_rank
 
 
 def read(run):
-    times = [t.done - t.leased for t in run.done() if t.leased is not None]
+    times = [t.done - t.start for t in run.done() if t.start is not None]
     return nearest_rank(times, 80.0) if times else None

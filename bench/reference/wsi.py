@@ -27,7 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["MAX_OBJECTS", "run_tile"]
+__all__ = ["MAX_OBJECTS", "run_sample", "run_tile"]
 
 MAX_OBJECTS = 256          # objects per tile that features are kept for
 MIN_AREA, MAX_AREA = 24, 8192
@@ -238,3 +238,8 @@ def run_tile(tile: np.ndarray, device, dt: torch.dtype = torch.float32,
     out["objects"] = seg["objects"].cpu().numpy()
     out["n_objects"] = seg["n_objects"]
     return out
+
+
+def run_sample(tile: np.ndarray, device) -> dict:
+    """The reference's outputs of one compared tile, as configured."""
+    return run_tile(tile, device)

@@ -5,16 +5,18 @@
 
 From the root of a checkout. The cell (``BENCHMARK.json``'s
 ``workloads``) names a configuration and a traffic mix; the
-configuration's driver (``bench/drivers/``) drives the port's main path
-on tiles made from ``--seed``, warms up, and measures for ``--seconds``
-seconds. After the window the run compares a sample of the outputs the
-window produced with the plain reference (``bench/reference/``), each
-number beside its limit (``bench/limits/<cell>.json``).
+configuration's driver (``bench/drivers/``) makes the cell's traffic
+from ``--seed``, drives the port's main path on it, warms up, and
+measures for ``--seconds`` seconds. After the window the run compares a
+sample of the outputs the window produced with the plain reference
+(``bench/reference/``), by the configuration's comparison
+(``bench/compare/``), each number beside its limit
+(``bench/limits/<cell>.json``).
 
 The last line of standard output is one JSON object: ``correct``,
 ``attempted``, ``failed``, ``metrics`` (the cell's end-to-end metrics
 with ``--trace 0``, its per-layer metrics with ``--trace 1``, each read
-by ``bench/metrics/<name>.py``), ``device``, with ``--trace 1``
+by its reader in ``bench/metrics/``), ``device``, with ``--trace 1``
 ``breakdown``, and last ``checks``: each number compared with its
 limit. The same numbers are the last lines of standard error.
 
@@ -38,10 +40,9 @@ BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
 sys.path[:0] = [str(BENCH), str(ROOT / "src")]
 
-from benchkit.compare import compare, judge, worst  # noqa: E402
+from benchkit.compare import judge, within, worst  # noqa: E402
 from benchkit.guard import forbidden_modules  # noqa: E402
-from benchkit.spec import load_cell, load_module, metrics_of  # noqa: E402
-from benchkit.tiles import make_traffic  # noqa: E402
+from benchkit.spec import load_cell, load_module, load_reader, metrics_of  # noqa: E402
 from benchkit.trace import breakdown, union_seconds  # noqa: E402
 
 
@@ -62,14 +63,13 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
     lines that show each compared number beside its limit."""
     import torch
 
-    traffic = make_traffic(cell.traffic, seed, int(cell.config["tile"]))
-    driver = load_module("drivers", cell.config["driver"])
-    record, samples = driver.run(cell, traffic, seed, seconds, trace, device, t_start)
+    driver = load_module("drivers", cell.config["driver"], cell.bench)
+    record, samples = driver.run(cell, seed, seconds, trace, device, t_start)
     guard("after the window")
 
     metrics = {}
-    for m in metrics_of(cell.name, trace):
-        value = load_module("metrics", m["name"]).read(record)
+    for m in metrics_of(cell.name, trace, cell.root):
+        value = load_reader(m["name"], cell.bench)(record)
         if value is not None:
             metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
     on_card = torch.device(device).type == "cuda"
@@ -82,7 +82,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
         dev["window_s"] = record.device.window_s
         extra["breakdown"] = breakdown(record.device, record.spans)
 
-    # The program's state is gone with the driver's objects: free it
+    # The program's state goes with the driver's record: free it
     # before the reference takes the card.
     done = record.done()
     errored = len(record.errors)
@@ -90,16 +90,17 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    reference = load_module("reference", cell.config["reference"])
-    per_tile = [compare(got, reference.run_tile(traffic.tile(chunk), device))
-                for chunk, got in samples.items()]
-    numbers = worst(per_tile) if per_tile else {}
+    reference = load_module("reference", cell.config["reference"], cell.bench)
+    comparison = load_module("compare", cell.config["compare"], cell.bench)
+    per_sample = [comparison.compare(s.got, reference.run_sample(s.inputs, device))
+                  for s in samples]
+    numbers = worst(per_sample) if per_sample else {}
     limits = cell.limits["limits"]
-    failed = errored + sum(1 for n in per_tile if not judge(n, limits))
-    correct = bool(per_tile) and errored == 0 and judge(numbers, limits)
+    failed = errored + sum(1 for n in per_sample if not within(n, limits))
+    correct = bool(per_sample) and errored == 0 and judge(numbers, limits)
     checks = {k: {"value": numbers.get(k), "limit": lim} for k, lim in limits.items()}
     lines = [f"check {k}: {c['value']!r} limit {c['limit']!r}" for k, c in checks.items()]
-    lines.append(f"check tiles compared: {len(per_tile)} of {len(done)}; correct {correct}")
+    lines.append(f"check samples compared: {len(per_sample)} of {len(done)}; correct {correct}")
     result = {"correct": correct, "attempted": len(done) + errored, "failed": failed,
               "metrics": metrics, "device": dev, **extra, "checks": checks}
     return result, lines

@@ -1,6 +1,8 @@
 """What decides ``correct``: a sound run of a cell, driven on the CPU
-(the harness's look for a card skipped), comes out correct; the control
-(the reference in bfloat16) and runs with the timed path broken
+(the harness's look for a card skipped), comes out correct; the
+controls (the reference in the precision below the configuration's;
+for the serving cells also a Mamba2 state zeroed once and a decode
+attention one position short) and runs with the timed path broken
 underneath come out not correct."""
 
 import time
@@ -9,16 +11,21 @@ import pytest
 import torch
 
 from benchkit.compare import judge
-from benchkit.spec import benchmark, load_module
-from benchkit.tiles import make_traffic
+from benchkit.spec import benchmark, load_cell, load_module
 from conftest import TINY_TILE, tiny
+from kinds.wsi_tiles import make_traffic
 
 import run as bench_run
 from control import control_readings
 from repro_torch.app import pipeline
 from repro_torch.kernels import ops
+from repro_torch.launch import serve
+from repro_torch.models import transformer
 
 CELLS = [w["name"] for w in benchmark()["workloads"]]
+WSI = [c for c in CELLS if load_cell(c).config["driver"] == "wsi_manager"]
+SERVE = [c for c in CELLS if load_cell(c).config["driver"] == "lm_serve"]
+WSI_CONTROL = load_module("controls", "wsi")
 
 
 def _run(name: str, seed: int = 4242):
@@ -34,10 +41,10 @@ def test_sound_run_is_correct():
     assert set(result["metrics"]) == {"tiles_per_s", "tile_p80_s", "setup_s"}  # no card: no peak
 
 
-@pytest.mark.parametrize("name", CELLS)
+@pytest.mark.parametrize("name", WSI)
 def test_control_is_not_correct(name):
     cell = tiny(name)
-    numbers = control_readings(cell, 77, 2, "cpu")
+    numbers = WSI_CONTROL.control_readings(cell, 77, 2, "cpu")
     assert not judge(numbers, cell.limits["limits"]), numbers
 
 
@@ -78,12 +85,12 @@ def test_object_count_altered_fails(monkeypatch):
 def test_control_on_the_card_at_the_cells_size():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the control at 4096x4096")
-    from benchkit.spec import load_cell
 
-    for name in CELLS:
+    for name in WSI:
         cell = load_cell(name)
         for seed in (1, 2, 3):
-            assert not judge(control_readings(cell, seed, 1, "cuda"), cell.limits["limits"])
+            numbers = WSI_CONTROL.control_readings(cell, seed, 1, "cuda")
+            assert not judge(numbers, cell.limits["limits"])
 
 
 def test_traffic_tiles_reach_the_reference_unchanged():
@@ -94,3 +101,76 @@ def test_traffic_tiles_reach_the_reference_unchanged():
     before = traffic.tile(0).copy()
     ref.run_tile(traffic.tile(0), "cpu")
     assert (traffic.tile(0) == before).all()
+
+
+# The serving cells: the port's batcher on the smoke configuration.
+
+@pytest.mark.parametrize("name", SERVE)
+def test_sound_serving_run_is_correct(name):
+    result = _run(name)
+    assert result["correct"] and result["failed"] == 0 and result["attempted"] > 0
+    assert set(result["metrics"]) == {"output_tokens_per_s", "ttft_p80_s", "setup_s"}
+    assert set(result["checks"]) == {"logits", "token_gap", "attention"}
+    assert all(c["value"] is not None for c in result["checks"].values())
+
+
+@pytest.mark.parametrize("name", SERVE)
+def test_serving_controls_are_not_correct(name):
+    # The sound program, the float8 weights, a state zeroed once, a cache
+    # read one position short; and the float32 witness, which agrees with
+    # the reference to rounding.
+    cell = tiny(name)
+    got = control_readings(cell, 77, "cpu")
+    limits = cell.limits["limits"]
+    assert judge(got["program"], limits), got
+    for control in ("fp8_weights", "state_zeroed", "cache_short"):
+        assert not judge(got[control], limits), (control, got)
+    # The short cache is seen by the attention stage.
+    assert got["cache_short"]["attention"] > limits["attention"], got
+    assert got["program_float32"]["logits"] < 1e-4 and got["program_float32"]["token_gap"] == 0.0
+
+
+@pytest.mark.parametrize("name", SERVE)
+def test_decode_state_left_unchanged_fails(monkeypatch, name):
+    # A step that returns its state unchanged: each Mamba2 layer's decode
+    # gives back the cache it was given.
+    mamba_decode = transformer._mamba_block_decode
+
+    def unchanged(p, x, cache, cfg):
+        return mamba_decode(p, x, cache, cfg)[0], cache
+
+    monkeypatch.setattr(transformer, "_mamba_block_decode", unchanged)
+    assert not _run(name)["correct"]
+
+
+@pytest.mark.parametrize("name", SERVE)
+def test_token_altered_where_produced_fails(monkeypatch, name):
+    # The serve step hands back a token one above the argmax it chose.
+    make = serve.make_serve_step
+
+    def altered(model, *args):
+        step = make(model, *args)
+
+        def faulty(caches, tokens, lengths):
+            nxt, logits, caches, lengths = step(caches, tokens, lengths)
+            return (nxt + 1) % logits.shape[-1], logits, caches, lengths
+
+        return faulty
+
+    monkeypatch.setattr(serve, "make_serve_step", altered)
+    result = _run(name)
+    assert not result["correct"] and result["checks"]["token_gap"]["value"] > 0.18
+
+
+@pytest.mark.parametrize("name", SERVE)
+def test_prompts_other_than_the_traffic_fail(monkeypatch, name):
+    # The program serving prompts of its own, not the harness's.
+    make = serve.make_prefill_step
+
+    def shifted(model, max_len):
+        step = make(model, max_len)
+        return lambda inputs: step({"tokens": (inputs["tokens"] + 1) % model.cfg.vocab_size})
+
+    monkeypatch.setattr(serve, "make_prefill_step", shifted)
+    result = _run(name)
+    assert not result["correct"] and result["failed"] > 0

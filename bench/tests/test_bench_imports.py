@@ -8,6 +8,8 @@ import ast
 import subprocess
 import sys
 
+import pytest
+
 from benchkit.guard import FORBIDDEN
 from benchkit.spec import BENCH
 
@@ -38,13 +40,14 @@ sys.path[:0] = [{tests!r}]
 from conftest import tiny
 import run as bench_run
 from benchkit.guard import forbidden_modules
-result, _ = bench_run.run_cell(tiny("wsi4k-fine.cerebrum"), 11, 3.0, True, "cpu", t0)
+result, _ = bench_run.run_cell(tiny({cell!r}), 11, 3.0, True, "cpu", t0)
 print(result["correct"], forbidden_modules(), sorted({{m.split(".")[0] for m in sys.modules}} & {{"jax", "repro", "repro_torch"}}))
 """
 
 
-def test_a_run_loads_no_jax():
-    out = subprocess.run([sys.executable, "-c", RUN.format(tests=str(BENCH / "tests"))],
+@pytest.mark.parametrize("cell", ["wsi4k-fine.cerebrum", "zamba2-1.2b.serve"])
+def test_a_run_loads_no_jax(cell):
+    out = subprocess.run([sys.executable, "-c", RUN.format(tests=str(BENCH / "tests"), cell=cell)],
                          capture_output=True, text=True, timeout=600, cwd=BENCH.parent)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.split("\n")[-2] == "True [] ['repro_torch']", out.stdout[-2000:]

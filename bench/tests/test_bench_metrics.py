@@ -7,21 +7,23 @@ import math
 import pytest
 
 from benchkit.peaks import HBM_BYTES_PER_S, least_seconds
-from benchkit.record import Run, TileTimes, nearest_rank
+from benchkit.record import Item, Run, nearest_rank
 from benchkit.spec import load_module
 from benchkit.trace import DeviceEvent, DeviceTrace, breakdown, gaps, union_seconds
+from kinds.wsi_record import WsiRecord
 
 
 def _run(done_at, leased_at=None, seconds=10.0, device=None, spans=(), **kw):
     tiles = {}
     for i, t in enumerate(done_at):
-        tiles[i] = TileTimes(i, leased=(leased_at[i] if leased_at else t - 1.0), done=t)
-    base = dict(t_open=100.0, t_close=100.0 + seconds, wall_open=1000.0, setup_s=12.5, tiles=tiles,
+        tiles[i] = Item(i, start=(leased_at[i] if leased_at else t - 1.0), done=t)
+    own = WsiRecord(tile_shape=(4096, 4096), stage_ops={"segmentation": ["a", "b"], "features": ["c"]},
+                    op_chunks=kw.pop("op_chunks", {}))
+    base = dict(t_open=100.0, t_close=100.0 + seconds, wall_open=1000.0, setup_s=12.5, items=tiles,
                 counters_open={"lane_busy": 5.0, "device_evictions": 70.0},
                 counters_close={"lane_busy": 14.0, "device_evictions": 230.0},
-                peak_bytes=3 << 30, window_peak_bytes=4 << 30, tile_shape=(4096, 4096),
-                stage_ops={"segmentation": ["a", "b"], "features": ["c"]},
-                spans=list(spans), device=device)
+                peak_bytes=3 << 30, window_peak_bytes=4 << 30,
+                spans=list(spans), device=device, own=own)
     base.update(kw)
     return Run(**base)
 
@@ -37,7 +39,7 @@ def test_rate_counts_only_the_window():
     assert read("tiles_per_s", run) == pytest.approx(2.0)
     # The tile that closes the window counts, whatever the rounding of its length.
     run = _run([100.0, 117.3], t_open=100.0, t_close=117.3)
-    run.tiles[1].done = run.t_close
+    run.items[1].done = run.t_close
     assert len(run.done()) == 1 and run.seconds == pytest.approx(17.3)
 
 

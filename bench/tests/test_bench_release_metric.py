@@ -4,8 +4,9 @@ such span (an untraced run, or a program that releases nothing)."""
 
 import pytest
 
-from benchkit.record import Run, TileTimes
+from benchkit.record import Item, Run
 from benchkit.spec import load_module
+from kinds.wsi_record import WsiRecord
 
 GIB = 2**30
 
@@ -17,12 +18,13 @@ def span(name, ts, dur, **args):
 def _run(spans=()):
     # Window (100, 110] on perf_counter, wall 1000-1010: tiles 1 and 2
     # complete in it, tile 0 before it and tile 3 after it.
-    tiles = {0: TileTimes(0, 95.0, 99.0), 1: TileTimes(1, 99.0, 104.0),
-             2: TileTimes(2, 101.0, 109.0), 3: TileTimes(3, 105.0, 111.0)}
-    return Run(t_open=100.0, t_close=110.0, wall_open=1000.0, setup_s=1.0, tiles=tiles,
+    tiles = {0: Item(0, 95.0, 99.0), 1: Item(1, 99.0, 104.0),
+             2: Item(2, 101.0, 109.0), 3: Item(3, 105.0, 111.0)}
+    own = WsiRecord(tile_shape=(4096, 4096), stage_ops={"segmentation": ["a", "b"], "features": ["c"]},
+                    op_chunks={10: 1, 11: 2, 12: 0, 13: 3})
+    return Run(t_open=100.0, t_close=110.0, wall_open=1000.0, setup_s=1.0, items=tiles,
                counters_open={}, counters_close={}, peak_bytes=0, window_peak_bytes=0,
-               tile_shape=(4096, 4096), stage_ops={"segmentation": ["a", "b"], "features": ["c"]},
-               spans=list(spans), op_chunks={10: 1, 11: 2, 12: 0, 13: 3}, device=None)
+               spans=list(spans), device=None, own=own)
 
 
 def read(run):

@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 
 from benchkit.spec import load_cell
-from benchkit.tiles import make_traffic, nuclei_ladder, pool_tile, rng_for
+from kinds.wsi_tiles import make_traffic, nuclei_ladder, pool_tile, rng_for
 
 
 def _spec(name, **kw):
@@ -65,3 +65,20 @@ def test_pool_tile_places_what_it_can():
     # Nuclei are dark: the tile's darkest pixels are far below the stroma.
     gray = tile.astype(np.float32) @ np.array([0.299, 0.587, 0.114], np.float32)
     assert gray.min() < 150 < np.median(gray)
+
+
+# The serving traffic: prompts drawn as the port's serve_requests draws them.
+
+def test_serving_prompts_from_the_seed():
+    from kinds.serve import make_prompts
+
+    spec = {"requests": 6, "prompt_len": 40}
+    for seed in (0, 7, 2**31 + 11, 2**62 + 3):
+        a, b = make_prompts(spec, seed, 512), make_prompts(spec, seed, 512)
+        assert a.dtype == np.int32 and a.shape == (6, 40) and np.array_equal(a, b)
+        assert 0 <= a.min() and a.max() < 512
+    assert not np.array_equal(make_prompts(spec, 1, 512), make_prompts(spec, 2, 512))
+    # One request after another from one generator, as serve_requests draws.
+    rs = np.random.default_rng(9)
+    want = [rs.integers(0, 512, 40).astype(np.int32) for _ in range(6)]
+    assert np.array_equal(make_prompts(spec, 9, 512), np.stack(want))
